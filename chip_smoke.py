@@ -21,7 +21,24 @@ Phases, each of which raises (exit code != 0) if it fails:
      one PyTorch call computing the same function where one exists;
   6. the kernel path against the plain path, teacher-forced: bf16 at
      full depth (prefill and decode logits) and fp32 with 2 layers
-     (greedy tokens identical for 16 steps).
+     (greedy tokens identical for 16 steps);
+  7. the flash backward kernels (dq, dk/dv) against their plain version,
+     in bf16 and fp32, at the training shape (b = 8, H = KVH = 14,
+     D = 128, s = 2048, causal; the forward there too), a GQA shape,
+     sq < sk, a non-causal chunk and an offset chunk with fully masked
+     rows and a nonzero lse cotangent;
+  8. the training path: ShardedTrainStep on the 0.9B headline config of
+     ray_tpu_torch/bench.py (16 layers, hidden 1792, 14 heads, full
+     remat, fused CE, AdamW with bf16 moments) at b = 8, s = 2048 with
+     random weights from seed 0: a warm-up step, 6 timed steps, tokens/s,
+     train_mfu, peak memory, the card's busy share over a step, and the
+     flash kernels' launches per step read around the run;
+  9. the training path with its flash kernels against the plain path on
+     the card: loss and every gradient at full width with 2 layers, bf16
+     and fp32;
+ 10. the training kernels' times at the training shape beside their
+     bounds, the plain backward's time and one PyTorch backward of the
+     same attention.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -30,6 +47,8 @@ limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import re
@@ -41,7 +60,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch import bench as tbench
 from ray_tpu_torch.models import decoding as tdec
+from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
@@ -51,6 +72,8 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as tat
 from ray_tpu_torch.ops import paged_attention as tpa
 from ray_tpu_torch.serve.llm_engine import LLMEngine
+from ray_tpu_torch.train import optim as toptim
+from ray_tpu_torch.train.train_state import ShardedTrainStep, default_optimizer
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -73,7 +96,38 @@ KERNELS = {
     "flash_fwd": dict(
         kernel=tat.FLASH_FWD, source="ray_tpu_torch/csrc/flash_fwd.cu",
         replaces="ray_tpu/ops/attention.py:92"),
+    "flash_bwd_dq": dict(
+        kernel=tat.FLASH_BWD_DQ, source="ray_tpu_torch/csrc/flash_bwd.cu",
+        replaces="ray_tpu/ops/attention.py:223"),
+    "flash_bwd_dkv": dict(
+        kernel=tat.FLASH_BWD_DKV, source="ray_tpu_torch/csrc/flash_bwd.cu",
+        replaces="ray_tpu/ops/attention.py:267"),
 }
+# The kernels each main path runs (flash_fwd runs on both).
+SERVE_KERNELS = ("paged_decode_attention", "row_write", "flash_fwd")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Backward kernels vs their plain version, relative to the largest plain
+# gradient.  fp32: sums in another order.  bf16: both round p and ds to
+# bf16 at the same points; the fp32 sums, taken in another order, round
+# to bf16 at the end (one bf16 ulp, 2^-8, of the largest value).
+BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Training path with kernels vs plain path, 2 layers at full width: loss
+# and every gradient relative to the largest plain gradient.  bf16: the
+# attention ops round differently (a bf16 ulp per op) and the backward
+# carries that through two layers; fp32: summation order (with the
+# unfused CE: the fused CE rounds x and dlogits to bf16, as the reference
+# does, which turns fp32 order differences into bf16 rounding flips).
+TRAIN_DEPTH_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+TRAIN = dict(batch=8, seq=2048, steps=6)
+# Device time by kind of kernel, matched on the kernel's name in order.
+PROFILE_GROUPS = [
+    ("flash kernels (port)", r"flash_(fwd|bwd)"),
+    ("paged decode / row write (port)", r"paged_decode|row_write"),
+    ("matmul (cuBLAS)", r"nvjet|gemm|cutlass|sm90_xmma"),
+    ("copy / cast", r"copy|CatArrayBatched"),
+    ("reduction", r"reduce_kernel"),
+    ("elementwise", r"elementwise|index"),
+]
 SHAPES = {"llama2_7b": dict(H=32, KVH=32, D=128, page=128),
           "gqa_serve": dict(H=16, KVH=4, D=128, page=128)}
 
@@ -306,8 +360,8 @@ def phase_main_path(dev, params, cfg):
         return out
 
     eng._admit, eng._decode = timed_admit, timed_decode
-    for spec in KERNELS.values():
-        spec["kernel"].launches = 0
+    for name in SERVE_KERNELS:
+        KERNELS[name]["kernel"].launches = 0
     t0 = time.perf_counter()
     ids = [eng.add_request(p, n) for p, n in zip(prompts, max_new)]
     done, steps = {}, 0
@@ -316,8 +370,8 @@ def phase_main_path(dev, params, cfg):
         steps += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: spec["kernel"].launches
-                for name, spec in KERNELS.items()}
+    launches = {name: KERNELS[name]["kernel"].launches
+                for name in SERVE_KERNELS}
     eng._admit, eng._decode = inner_admit, inner_decode
 
     for rid, n in zip(ids, max_new):
@@ -422,6 +476,14 @@ def profiled(fn, calls, label, smi):
     print(f"[profile] {label} on {smi} (profiler on): "
           f"{wall / calls * 1e3:.2f} ms per step, card busy "
           f"{busy / calls * 1e3:.2f} ms per step ({share})")
+    groups = {}
+    for e in on_card:
+        kind = next((g for g, pat in PROFILE_GROUPS if re.search(pat, e.key)),
+                    "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total
+    print("[profile]   by kind, ms per step: " + ", ".join(
+        f"{g} {t / 1e3 / calls:.2f}" for g, t in sorted(
+            groups.items(), key=lambda kv: -kv[1])))
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.key[:70]}: "
               f"{e.self_device_time_total / 1e3 / calls:.3f} ms and "
@@ -533,6 +595,301 @@ def phase_timings(dev, eng, prompts, max_new, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training path
+# ---------------------------------------------------------------------------
+
+# (name, b, sq, sk, H, KVH, q_off, kv_off, causal), D = 128.  "train" is
+# the training path's shape, batch included.
+BWD_CASES = [
+    ("train", 8, 2048, 2048, 14, 14, 0, 0, True),
+    ("gqa", 2, 512, 512, 16, 4, 0, 0, True),
+    ("end_aligned", 1, 256, 640, 14, 14, 384, 0, True),
+    ("noncausal", 1, 200, 300, 14, 14, 0, 0, False),
+    ("masked_rows", 1, 320, 256, 14, 14, 100, 200, True),
+]
+
+
+def phase_kernels_bwd(dev):
+    """dq and dk/dv against flash_attention_chunk_bwd_plain on the same
+    (out, lse) and cotangents (do and a nonzero dlse), and at the training
+    shape the forward's (out, lse) against its plain version too; returns
+    the largest bf16 error of each kernel at the training shape."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_fwd": 0.0}
+    D = 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, sq, sk, H, KVH, q_off, kv_off, causal in BWD_CASES:
+            q = rand(gen, (b, sq, H, D), dtype, dev)
+            k = rand(gen, (b, sk, KVH, D), dtype, dev)
+            v = rand(gen, (b, sk, KVH, D), dtype, dev)
+            do = rand(gen, (b, sq, H, D), dtype, dev)
+            dlse = torch.randn((b * H, sq), generator=gen, device=dev)
+            out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off,
+                                                 causal)
+            scale = 1.0 / math.sqrt(D)
+            got = tat._flash_chunk_bwd_cuda(q, k, v, out, lse, do, dlse,
+                                            q_off, kv_off, causal, scale)
+            torch.cuda.synchronize()
+            tag = f"{name} {str(dtype)[6:]} b={b} sq={sq} sk={sk} H={H} " \
+                  f"KVH={KVH} q_off={q_off} kv_off={kv_off} causal={causal}"
+            if name == "train":
+                o_ref, l_ref = tat.flash_attention_chunk_plain(
+                    q, k, v, q_off, kv_off, causal, scale)
+                err_f = (out.float() - o_ref.float()).abs().max().item()
+                err_l = (lse - l_ref).abs().max().item()
+                print(f"[kernel] flash_fwd {tag}: max_abs_err out "
+                      f"{err_f:.3e} lse {err_l:.3e} (tolerance "
+                      f"{TOL[dtype]:g})")
+                check(err_f <= TOL[dtype] and err_l <= 1e-3 + TOL[dtype],
+                      f"{tag}: flash forward disagrees")
+                if dtype == torch.bfloat16:
+                    worst["flash_fwd"] = err_f
+                del o_ref, l_ref
+            want = tat.flash_attention_chunk_bwd_plain(
+                q, k, v, out, lse, do, dlse, q_off, kv_off, causal, scale)
+            check(not any(torch.isnan(g).any().item() for g in got),
+                  f"{tag}: NaN in a gradient")
+            dead = (lse <= tat._NEG_INF / 2).reshape(b, H, sq).all(1)
+            check(torch.all(got[0][dead] == 0), f"{tag}: masked rows' dq")
+            if name == "masked_rows":
+                check(bool(dead.any()), f"{tag}: no fully masked row")
+            errs = []
+            for g, w in zip(got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                ref = max(w.float().abs().max().item(), 1.0)
+                errs.append(err)
+                check(err <= BWD_REL_TOL[dtype] * ref,
+                      f"{tag}: backward kernel disagrees ({err} vs max "
+                      f"{ref})")
+            print(f"[kernel] flash_bwd {tag}: max_abs_err dq {errs[0]:.3e} "
+                  f"dk {errs[1]:.3e} dv {errs[2]:.3e} (tolerance "
+                  f"{BWD_REL_TOL[dtype]:g} x max |plain|, max |plain dq| "
+                  f"{want[0].float().abs().max().item():.3e}); fully "
+                  f"masked rows {int(dead.sum())}; no NaN")
+            if name == "train" and dtype == torch.bfloat16:
+                worst["flash_bwd_dq"] = errs[0]
+                worst["flash_bwd_dkv"] = max(errs[1:])
+            del q, k, v, do, out, lse, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_optimizer():
+    return default_optimizer(warmup_steps=10, total_steps=1000,
+                             mu_dtype=torch.bfloat16,
+                             nu_dtype=torch.bfloat16)
+
+
+def phase_train(dev, smi):
+    """The 0.9B headline config trained at b = 8, s = 2048; returns the
+    training kernels' launches over the timed steps."""
+    name, cfg, B, S = tbench._config_ladder(ttf)[0]
+    check(name == "0.9B" and (B, S) == (TRAIN["batch"], TRAIN["seq"]),
+          "the bench's headline config changed")
+    steps = TRAIN["steps"]
+    ts = ShardedTrainStep(cfg, device=dev, optimizer=train_optimizer())
+    t0 = time.perf_counter()
+    state = ts.init(0)
+    torch.cuda.synchronize()
+    print(f"[train] {name}: {num_params(cfg):,} params (vocab "
+          f"{cfg.vocab_size}, hidden {cfg.hidden_size}, MLP "
+          f"{cfg.intermediate_size}, {cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads, head_dim {cfg.head_dim_}), remat "
+          f"{cfg.remat_policy}, fused_ce {cfg.fused_ce}, AdamW bf16 mu/nu; "
+          f"init {time.perf_counter() - t0:.1f} s, device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S + 1))).to(dev)
+    batch = {"tokens": tokens}
+    t0 = time.perf_counter()
+    state, m = ts.step(state, batch)
+    first = float(m["loss"])
+    print(f"[train] warm-up step (learning rate 0): loss {first:.4f}, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    for n in TRAIN_KERNELS:
+        KERNELS[n]["kernel"].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = ts.step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: KERNELS[n]["kernel"].launches for n in TRAIN_KERNELS}
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = B * S * steps / dt
+    mfu = tok_s * ttf.flops_per_token(cfg, S) / tbench._peak_flops(dev)
+    print(f"[train] losses of the {steps} timed steps: "
+          f"{[round(x, 4) for x in losses]} (same batch each step)")
+    check(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    check(losses[-1] < losses[0], "the loss did not fall over the steps")
+    L = cfg.num_layers
+    per_step = {n: c / steps for n, c in launches.items()}
+    print(f"[train] launches per step {json.dumps(per_step)} (expected "
+          f"flash_fwd {2 * L}: forward + remat recompute; dq and dk/dv "
+          f"{L} each)")
+    check(launches == {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps},
+          "training kernel launches differ from the expected count")
+    print(f"[train] on {smi}: {dt / steps * 1e3:.1f} ms per step, "
+          f"{tok_s:.0f} tokens/s, train_mfu {mfu:.4f} (model FLOPs "
+          f"{ttf.flops_per_token(cfg, S):.4e} per token over "
+          f"{tbench._peak_flops(dev):.3g} FLOP/s), peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    with torch.no_grad():  # the optimizer's share of a step
+        grads = toptim.tree_map(torch.zeros_like, state["params"])
+
+        def update():
+            upd, _ = ts.optimizer.update(grads, state["opt_state"],
+                                         state["params"])
+            toptim.apply_updates(state["params"], upd)
+
+        opt_ms = time_eager_ms(update, 2)
+        del grads
+    print(f"[train] of which the optimizer (clip, AdamW, apply; eager "
+          f"PyTorch over {num_params(cfg):,} fp32 params): {opt_ms:.1f} ms")
+    profiled(lambda: ts.step(state, batch), 1, "training step (0.9B, b=8, "
+             "s=2048)", smi)
+    del state, ts
+    torch.cuda.empty_cache()
+    return launches, dict(tok_s=tok_s, mfu=mfu, peak=peak)
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the flash op's CUDA forward and backward to their plain
+    PyTorch versions, for the plain side of a comparison."""
+    saved = (tat._flash_chunk_cuda, tat._flash_chunk_bwd_cuda)
+    tat._flash_chunk_cuda = tat.flash_attention_chunk_plain
+    tat._flash_chunk_bwd_cuda = tat.flash_attention_chunk_bwd_plain
+    try:
+        yield
+    finally:
+        tat._flash_chunk_cuda, tat._flash_chunk_bwd_cuda = saved
+
+
+def phase_train_depth(dev):
+    """Loss and every gradient of the 0.9B config cut to 2 layers (full
+    width, full remat), b = 2, s = 2048: kernel path against plain path,
+    in bf16 (fused CE, as trained) and fp32 (unfused CE, so that nothing
+    rounds to bf16)."""
+    _, base, _, S = tbench._config_ladder(ttf)[0]
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, base.vocab_size, (2, S + 1))).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(base, num_layers=2, dtype=dtype,
+                                  fused_ce=dtype == torch.bfloat16)
+        params = init_params(cfg, seed=0, device=dev)
+
+        def loss_and_grads():
+            live = toptim.tree_map(lambda p: p.detach().requires_grad_(),
+                                   params)
+            loss = ttf.loss_fn(live, {"tokens": tokens}, cfg)
+            return loss.item(), torch.autograd.grad(
+                loss, toptim.tree_leaves(live))
+
+        lk, gk = loss_and_grads()
+        with plain_flash():
+            lp, gp = loss_and_grads()
+        rel_loss = abs(lk - lp) / abs(lp)
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(gk, gp)]
+        tol = TRAIN_DEPTH_TOL[dtype]
+        print(f"[train-depth] {str(dtype)[6:]} 2 layers, fused_ce "
+              f"{cfg.fused_ce}, b=2 s={S}: loss "
+              f"{lk:.6f} vs plain {lp:.6f} (relative {rel_loss:.2e}); "
+              f"worst gradient max |kernel - plain| / max |plain| "
+              f"{max(rel):.3e} over {len(rel)} params (tolerance {tol:g})")
+        check(rel_loss <= tol and max(rel) <= tol,
+              "training kernel path drifts from the plain path")
+        del params, gk, gp
+    torch.cuda.empty_cache()
+
+
+def time_eager_ms(fn, n):
+    """Device ms per call of fn, n calls issued eagerly between CUDA
+    events (for calls that are not captured in a graph)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(n):
+            fn()
+
+    return _events_ms(run, n)
+
+
+def phase_timings_train(dev, smi):
+    """The training kernels at the training shape (b = 8, s = 2048,
+    H = 14, D = 128, bf16, causal): device time, bound, the plain
+    backward's time and one PyTorch backward of the same attention."""
+    b, s, H, D, bf = 8, 2048, 14, 128, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do = (rand(gen, (b, s, H, D), bf, dev) for _ in range(4))
+    out, lse = tat.flash_attention_chunk(q, k, v, 0, 0, True)
+    corr = tat._bwd_corr(out, do, None, b, H, s)
+    scale = 1.0 / math.sqrt(D)
+    pairs = s * (s + 1) // 2         # visible (query, key) pairs per head
+    elem = b * s * H * D * 2         # bytes of one [b, s, H, D] bf16 tensor
+    rows = b * H * s * 4             # bytes of one lse-shaped fp32 vector
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+
+    def sdpa_backward():
+        torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True)
+
+    def plain_bwd():
+        tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, do, None, 0,
+                                            0, True, scale)
+
+    cases = {
+        "flash_fwd (training shape)": dict(
+            kernel=lambda: tat.flash_attention(q, k, v),
+            plain=lambda: tat.flash_attention_chunk_plain(q, k, v, 0, 0),
+            library=lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), is_causal=True),
+            flops=4 * b * H * D * pairs, bytes=4 * elem + rows),
+        "flash_bwd_dq": dict(
+            kernel=lambda: tat.flash_bwd_dq(q, k, v, do, lse, corr, 0, 0,
+                                            True, scale),
+            plain=plain_bwd, library=sdpa_backward,
+            flops=6 * b * H * D * pairs, bytes=5 * elem + 2 * rows),
+        "flash_bwd_dkv": dict(
+            kernel=lambda: tat.flash_bwd_dkv(q, k, v, do, lse, corr, 0, 0,
+                                             True, scale),
+            plain=plain_bwd, library=sdpa_backward,
+            flops=8 * b * H * D * pairs, bytes=6 * elem + 2 * rows),
+    }
+    shape = f"b={b} s={s} H=KVH={H} D={D} bf16 causal"
+    out_rows = {}
+    for name, c in cases.items():
+        ms, eager = time_ms(c["kernel"], 10)
+        plain_ms = time_eager_ms(c["plain"], 2)
+        lib_ms = time_eager_ms(c["library"], 10)
+        t_bytes = c["bytes"] / HBM_BYTES_S * 1e3
+        t_ops = c["flops"] / PEAK_FLOPS[bf] * 1e3
+        r = out_rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        what = ("dq + dk/dv together" if "bwd" in name else "forward")
+        print(f"[time] {name} [{shape}] on {smi}: device {ms:.4f} ms "
+              f"(eager, host included: {eager:.4f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{c['flops'] / 1e9:.1f} GFLOP, {c['bytes'] / 1e6:.1f} MB), "
+              f"plain {plain_ms:.4f} ms ({what}), library {lib_ms:.4f} ms "
+              f"(scaled_dot_product_attention {what})")
+    return out_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -549,26 +906,42 @@ def main() -> int:
     print(f"[main] Llama-2-7B random bf16 weights: {num_params(cfg):,} "
           f"params in {time.perf_counter() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    launches, eng, prompts, max_new, rates = phase_main_path(dev, params,
-                                                             cfg)
+    launches_serve, eng, prompts, max_new, rates = phase_main_path(
+        dev, params, cfg)
     print(f"[main] on {smi}: prefill {rates['prefill_tok_s']:.0f} tok/s, "
           f"decode {rates['decode_tok_s']:.0f} tok/s (host clock around "
           f"synchronized admit / decode calls)")
     phase_profile(eng, smi)
     timings = phase_timings(dev, eng, prompts, max_new, smi)
     del eng
+    gc.collect()  # the engine's timing hooks form a reference cycle
     torch.cuda.empty_cache()
     phase_depth_bf16(dev, params, cfg)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
     phase_depth_fp32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[main] serving phases done; device memory still allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    for kname, err in phase_kernels_bwd(dev).items():
+        worst[kname] = max(worst.get(kname, 0.0), err)
+    train_launches, _ = phase_train(dev, smi)
+    phase_train_depth(dev)
+    timings.update(phase_timings_train(dev, smi))
 
     kernels = []
     for kname, spec in KERNELS.items():
         r = timings[kname]
+        # flash_fwd runs on both paths: its count here is the serving
+        # path's; the training path's is printed by [train].
+        launches = (launches_serve[kname] if kname in SERVE_KERNELS
+                    else train_launches[kname])
         kernels.append({
             "name": kname, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches[kname],
+            "replaces": spec["replaces"], "launches": launches,
             "max_abs_err": worst[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -6,12 +6,19 @@ leading [L, ...] axis, so `params_from_numpy` carries JAX weights across
 key for key.  bfloat16 activations, fp32 RMSNorm statistics and logits,
 GQA, RoPE and SwiGLU, as in the reference.
 
-Left out here: sharding annotations and remat (training and mesh
-concerns of later slices); mixture-of-experts (`num_experts > 0`) and
-ring attention (`ring_attention=True`) raise NotImplementedError.  With
-`use_flash=True`, attention on a CUDA device runs the flash kernel
-(ops/attention.py); on the CPU it runs the plain version, as the
-reference does off-TPU.
+Training: `loss_fn` is the reference's next-token cross-entropy, through
+the fused chunked CE (ops/fused_ce.py) when `fused_ce=True`.  With
+`remat=True` and `remat_policy="full"` each layer runs under
+torch.utils.checkpoint (non-reentrant) while grad is enabled, so the
+backward recomputes the layer, flash forward kernel included; the
+reference's other policies ("dots", "save_attn", "dots_no_mlp") raise
+NotImplementedError.
+
+Left out here: sharding annotations (a mesh concern of a later slice);
+mixture-of-experts (`num_experts > 0`) and ring attention
+(`ring_attention=True`) raise NotImplementedError.  With `use_flash=True`,
+attention on a CUDA device runs the flash kernels (ops/attention.py); on
+the CPU it runs their plain versions, as the reference does off-TPU.
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.fused_ce import fused_ce_nll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +51,6 @@ class TransformerConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # Training-path fields, kept so configs carry across unchanged; the
-    # port's forward does not read them yet.
     remat: bool = True
     remat_policy: str = "full"
     scan_layers: bool = True
@@ -180,6 +187,18 @@ def params_from_numpy(tree: Dict[str, Any], config: TransformerConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _check_remat_policy(c: TransformerConfig) -> None:
+    """The policies the reference offers besides "full" raise until
+    ported; they matter only where a backward follows."""
+    if c.remat_policy == "full":
+        return
+    if c.remat_policy in ("dots", "save_attn", "dots_no_mlp"):
+        raise NotImplementedError(
+            f"remat_policy {c.remat_policy!r} is not ported yet; 'full' is")
+    raise ValueError(f"unknown remat_policy {c.remat_policy!r}; expected "
+                     "'full', 'dots', 'save_attn' or 'dots_no_mlp'")
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """Normalise in fp32, cast back, then scale in the working dtype."""
@@ -291,10 +310,21 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                           device=dev)
     mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[None,
                                                                     None]
-    blocks = params["blocks"]
-    for layer in range(c.num_layers):
-        bp = {k: v[layer] for k, v in blocks.items()}
-        x = _block(x, bp, cos, sin, positions, mask, c)
+    # unbind, not indexing: its backward stacks the layers' gradients
+    # once, where a select per layer would add a zero-filled [L, ...]
+    # gradient per layer.
+    names = list(params["blocks"])
+    per_layer = zip(*(params["blocks"][k].unbind(0) for k in names))
+    remat = c.remat and torch.is_grad_enabled()
+    if remat:
+        _check_remat_policy(c)
+    for weights in per_layer:
+        bp = dict(zip(names, weights))
+        if remat:
+            x = checkpoint(_block, x, bp, cos, sin, positions, mask, c,
+                           use_reentrant=False)
+        else:
+            x = _block(x, bp, cos, sin, positions, mask, c)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return rms_norm(x, params["final_norm"], c.rms_eps), aux
 
@@ -309,6 +339,36 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     if return_aux:
         return logits, aux
     return logits
+
+
+def _masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    if mask is None:
+        return nll.mean()
+    m = mask.to(nll.dtype)
+    return (nll * m).sum() / m.sum().clamp_min(1)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            config: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy, fp32.  batch: {"tokens": [b, s+1]} and an
+    optional {"mask": [b, s+1]} (the loss averages over mask[:, 1:], with
+    a denominator of at least 1)."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:]
+    if config.fused_ce:
+        b, s = inputs.shape
+        x, _ = forward_hidden(params, inputs, config)
+        nll = fused_ce_nll(x.reshape(b * s, -1), params["tok_embed"],
+                           targets.reshape(-1))
+        return _masked_mean(nll, None if mask is None else mask.reshape(-1))
+    logits = forward(params, inputs, config)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    return _masked_mean(nll, mask)
 
 
 def num_params(config: TransformerConfig) -> int:

@@ -10,14 +10,18 @@ Port of ray_tpu/ops/attention.py.
     (out, lse); q_off / kv_off are the global positions of q[:, 0] and
     k[:, 0].  Rows that see no key get out = 0 and lse = -1e30
     (`_NEG_INF`), which ring attention's merge reads as "no weight".
-  - `flash_attention_chunk_plain`: the plain PyTorch version of the
-    kernel, taken for CPU tensors.
+  - `flash_attention_chunk_plain` / `flash_attention_chunk_bwd_plain`:
+    the plain PyTorch versions of the forward and backward kernels,
+    taken for CPU tensors.
   - `attention_reference`: plain attention, the numerical ground truth.
 
 Layout: q is [batch, seq, heads, head_dim]; k and v may carry fewer heads
 than q (GQA, heads dividing q's), which the kernel reads without
-expanding.  The backward kernels (training) are not ported yet: calling
-backward through `flash_attention_chunk` raises.
+expanding.  The gradient (`_FlashChunk`) recomputes p from the saved
+lse in two kernels (csrc/flash_bwd.cu): dq per query tile, and dk/dv per
+key tile summed over the GQA group's query heads, so the backward never
+materializes the s x s matrix either.  The lse output is differentiable
+(ring attention's merge weights chunks by it).
 """
 
 from __future__ import annotations
@@ -38,6 +42,12 @@ FLASH_FWD = Kernel(
     "flash_fwd", "flash_fwd",
     [_c_p, _c_p, _c_p, _c_p, _c_p, _c_int, _c_int, _c_int, _c_int, _c_int,
      _c_int, _c_int, _c_int, _c_int, _c_f, _c_int])
+# After the pointers: b, h, hk, sq, sk, d, q_off, kv_off, causal, scale,
+# dtype.
+_BWD_DIMS = [_c_int] * 9 + [_c_f, _c_int]
+FLASH_BWD_DQ = Kernel("flash_bwd", "flash_bwd_dq", [_c_p] * 7 + _BWD_DIMS)
+FLASH_BWD_DKV = Kernel("flash_bwd", "flash_bwd_dkv",
+                       [_c_p] * 8 + _BWD_DIMS)
 
 
 def attention_reference(q, k, v, causal: bool = True,
@@ -122,19 +132,152 @@ def flash_attention_chunk_plain(q, k, v, q_off: int, kv_off: int,
             lse.reshape(b * h, sq))
 
 
-class _NoBackward(torch.autograd.Function):
-    """Forward through the chunk; backward raises until the flash backward
-    kernels (ray_tpu/ops/attention.py _bwd_dq_kernel, _bwd_dkv_kernel)
-    are ported with the training path."""
+def _bwd_corr(out, dout, dlse, b: int, h: int, sq: int) -> torch.Tensor:
+    """delta - dlse as [b*h, sq] fp32: delta = rowsum(do * out), the term
+    every column of a row's ds subtracts (ray_tpu/ops/attention.py
+    `_flash_bwd`, computed there outside the kernels too).  dlse, the
+    cotangent of the lse output, is None when the caller did not use lse
+    (zeros)."""
+    delta = (dout.float() * out.float()).sum(-1)              # [b, sq, h]
+    corr = delta.permute(0, 2, 1).reshape(b * h, sq)
+    if dlse is not None:
+        corr = corr - dlse.float()
+    return corr.contiguous()
+
+
+def flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
+                                    q_off: int, kv_off: int,
+                                    causal: bool = True,
+                                    sm_scale: Optional[float] = None):
+    """The plain PyTorch version of the backward kernels, step by step
+    in dense fp32 scores: p = exp(s * scale - lse) selected where the key
+    is visible and the row saw a key (lse > -5e29), then
+    ds = p * (do v^T - (delta - dlse)) * scale, dq = ds k, dk = ds^T q,
+    dv = p^T do, with p rounded to do's dtype and ds to k's / q's dtype
+    before the products, as the TPU kernels round them.  Returns
+    (dq [b,sq,h,d], dk, dv [b,sk,hk,d]); a GQA group's query heads sum
+    into their K/V head."""
+    _check_qkv(q, k, v)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if dout is None:
+        dout = torch.zeros_like(out)
+    corr = _bwd_corr(out, dout, dlse, b, h, sq).reshape(b, h, sq, 1)
+    ke, ve = k, v
+    if hk != h:
+        ke = k.repeat_interleave(h // hk, dim=2)
+        ve = v.repeat_interleave(h // hk, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) * sm_scale
+    rows = int(q_off) + torch.arange(sq, device=q.device)
+    cols = int(kv_off) + torch.arange(sk, device=q.device)
+    if causal:
+        visible = cols[None, :] <= rows[:, None]             # [sq, sk]
+    else:
+        visible = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    lse4 = lse.reshape(b, h, sq, 1)
+    keep = visible[None, None] & (lse4 > _NEG_INF / 2)
+    # Selection, not a product with a 0/1 mask: a row with lse = -1e30
+    # gives exp(+inf) before the mask.
+    p = torch.where(keep, torch.exp(s - lse4),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), ve.float())
+    ds = p * (dp - corr) * sm_scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), ke.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
+                      dout.float())
+    if hk != h:
+        dk = dk.reshape(b, sk, hk, h // hk, d).sum(3)
+        dv = dv.reshape(b, sk, hk, h // hk, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_args(q, k, v, lse, dout, corr):
+    _check_qkv(q, k, v)
+    if q.shape[-1] > 256:
+        raise ValueError(f"flash kernel takes head_dim <= 256, got "
+                         f"{q.shape[-1]}")
+    code = dtype_code(q, k, v, dout)
+    return (code, q.contiguous(), k.contiguous(), v.contiguous(),
+            dout.contiguous(), lse.float().contiguous(), corr)
+
+
+def flash_bwd_dq(q, k, v, dout, lse, corr, q_off: int, kv_off: int,
+                 causal: bool, sm_scale: float) -> torch.Tensor:
+    """dq through csrc/flash_bwd.cu (CUDA tensors; corr from _bwd_corr)."""
+    code, q, k, v, dout, lse, corr = _bwd_args(q, k, v, lse, dout, corr)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    if b and sq:
+        FLASH_BWD_DQ.launch(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), corr.data_ptr(), dq.data_ptr(),
+            b, h, hk, sq, sk, d, q_off, kv_off, int(causal), sm_scale, code)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, corr, q_off: int, kv_off: int,
+                  causal: bool, sm_scale: float):
+    """(dk, dv) through csrc/flash_bwd.cu (CUDA tensors), each K/V head
+    summed over its group of query heads."""
+    code, q, k, v, dout, lse, corr = _bwd_args(q, k, v, lse, dout, corr)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if b and sk:
+        FLASH_BWD_DKV.launch(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), corr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, hk, sq, sk, d, q_off, kv_off, int(causal),
+            sm_scale, code)
+    return dk, dv
+
+
+def _flash_chunk_bwd_cuda(q, k, v, out, lse, dout, dlse, q_off: int,
+                          kv_off: int, causal: bool, sm_scale: float):
+    b, sq, h, _ = q.shape
+    if dout is None:
+        dout = torch.zeros_like(out)
+    corr = _bwd_corr(out, dout, dlse, b, h, sq)
+    dq = flash_bwd_dq(q, k, v, dout, lse, corr, q_off, kv_off, causal,
+                      sm_scale)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, corr, q_off, kv_off, causal,
+                           sm_scale)
+    return dq, dk, dv
+
+
+def _flash_chunk_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
+                     sm_scale: float):
+    """The forward kernel on CUDA tensors, its plain version on CPU ones."""
+    impl = _flash_chunk_cuda if q.is_cuda else flash_attention_chunk_plain
+    return impl(q, k, v, q_off, kv_off, causal, sm_scale)
+
+
+class _FlashChunk(torch.autograd.Function):
+    """(out, lse) of one chunk, differentiable in q, k and v through both
+    outputs.  CUDA tensors run csrc/flash_fwd.cu forward and
+    csrc/flash_bwd.cu backward; CPU tensors the plain versions."""
 
     @staticmethod
-    def forward(ctx, fn, q, k, v):
-        return fn(q, k, v)
+    def forward(ctx, q, k, v, q_off, kv_off, causal, sm_scale):
+        out, lse = _flash_chunk_fwd(q, k, v, q_off, kv_off, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_off, kv_off, causal, sm_scale)
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet (training path)")
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None and dlse is None:
+            return None, None, None, None, None, None, None
+        impl = (_flash_chunk_bwd_cuda if q.is_cuda
+                else flash_attention_chunk_bwd_plain)
+        dq, dk, dv = impl(q, k, v, out, lse, dout, dlse, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
@@ -144,20 +287,16 @@ def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
 
     q_off / kv_off: global position of q[:, 0] / k[:, 0] (ints or 0-d
     tensors).  lse is [b*h, sq] float32; rows with no visible keys get
-    out = 0 and lse = -1e30.  CUDA tensors run csrc/flash_fwd.cu, CPU
-    tensors the plain version."""
+    out = 0 and lse = -1e30.  CUDA tensors run csrc/flash_fwd.cu (and
+    csrc/flash_bwd.cu for the gradient), CPU tensors the plain versions.
+    Both outputs are differentiable."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     q_off, kv_off = int(q_off), int(kv_off)
-    impl = _flash_chunk_cuda if q.is_cuda else flash_attention_chunk_plain
-
-    def fn(q, k, v):
-        return impl(q, k, v, q_off, kv_off, causal, sm_scale)
-
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return _NoBackward.apply(fn, q, k, v)
-    return fn(q, k, v)
+        return _FlashChunk.apply(q, k, v, q_off, kv_off, causal, sm_scale)
+    return _flash_chunk_fwd(q, k, v, q_off, kv_off, causal, sm_scale)
 
 
 def flash_attention(q, k, v, causal: bool = True,

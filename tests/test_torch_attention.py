@@ -4,10 +4,14 @@ JAX runs its Pallas `_fwd_kernel` in interpret mode; the port's CPU path
 is its plain version (`flash_attention_chunk_plain`).  Tolerance: fp32,
 atol = rtol = 2e-5, as tests/test_ops_attention.py holds the kernel to
 its own reference (the same arithmetic, summed in another order).
+Gradients: JAX's Pallas `_bwd_dq_kernel` / `_bwd_dkv_kernel` in
+interpret mode against the port's plain backward
+(`flash_attention_chunk_bwd_plain`), atol = rtol = 5e-4.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,9 +104,150 @@ def test_flash_gqa_heads_match_expanded_jax():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def test_flash_chunk_backward_raises_until_ported():
-    q, k, v = _t(*_qkv(9, 1, 8, 8, 1, 8))
-    q.requires_grad_(True)
-    out, _ = tat.flash_attention_chunk(q, k, v, 0, 0)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+# Gradients: fp32, atol = rtol = 5e-4 as tests/test_ops_attention.py holds
+# the Pallas backward to the reference's autodiff.
+GTOL = dict(atol=5e-4, rtol=5e-4)
+
+
+def test_flash_chunk_lse_only_gradient_matches_jax():
+    """A loss of lse alone: the out cotangent arrives as None and is read
+    as zeros, so the gradient is the dlse term's alone."""
+    b, s, h, d = 1, 64, 2, 32
+    q, k, v = _qkv(9, b, s, s, h, d)
+    (wl,) = _weights(4, (b * h, s))
+
+    def jloss(q, k, v):
+        _, l = jat.flash_attention_chunk(q, k, v, 0, 0, causal=True,
+                                         block_q=64, block_k=64)
+        return jnp.sum(l * wl)
+
+    def tloss(q, k, v):
+        _, l = tat.flash_attention_chunk(q, k, v, 0, 0, causal=True)
+        return (l * torch.from_numpy(wl)).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(tloss, q, k, v)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(wnt), **GTOL)
+    assert not np.any(got[2])  # v enters only through out
+
+
+def _weights(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _port_grads(loss_fn, *arrays):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    return [g.numpy() for g in torch.autograd.grad(loss_fn(*ts), ts)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (64, 128)])
+def test_flash_attention_grads_match_jax(causal, sq, sk):
+    """Square and end-aligned (sq < sk) windows, causal or not."""
+    q, k, v = _qkv(sq * 3 + sk, 1, sq, sk, 2, 32)
+    (w,) = _weights(1, q.shape)
+
+    def jloss(q, k, v):
+        return jnp.sum(jat.flash_attention(q, k, v, causal=causal) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(lambda q, k, v: (tat.flash_attention(
+        q, k, v, causal=causal) * torch.from_numpy(w)).sum(), q, k, v)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(wnt), **GTOL)
+
+
+@pytest.mark.parametrize("q_off,kv_off", [(256, 0), (256, 300), (0, 500)])
+def test_flash_chunk_grads_with_offsets_match_jax(q_off, kv_off):
+    """Through out and lse: fully visible, diagonal with fully masked
+    rows (lse = -1e30, zero gradient), and a chunk from the future."""
+    b, s, h, d = 1, 128, 2, 32
+    q, k, v = _qkv(q_off + kv_off, b, s, s, h, d)
+    wo, wl = _weights(2, q.shape, (b * h, s))
+
+    def jloss(q, k, v):
+        o, l = jat.flash_attention_chunk(q, k, v, q_off, kv_off, causal=True,
+                                         block_q=64, block_k=64)
+        return jnp.sum(o * wo) + jnp.sum(jnp.where(l > -1e29, l, 0.0) * wl)
+
+    def tloss(q, k, v):
+        o, l = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal=True)
+        return (o * torch.from_numpy(wo)).sum() + (torch.where(
+            l > -1e29, l, 0.0) * torch.from_numpy(wl)).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(tloss, q, k, v)
+    for g, wnt in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(wnt), **GTOL)
+    if kv_off > q_off:
+        dead = q_off + np.arange(s) < kv_off
+        assert np.all(got[0][:, dead] == 0)
+
+
+def test_flash_gqa_grads_match_expanded_jax():
+    """dk/dv of K/V heads read in place equal the reference's gradient
+    through heads expanded first (summed over each group)."""
+    q, k, v = _qkv(13, 2, 128, 128, 4, 32, hk=2)
+    (w,) = _weights(3, q.shape)
+
+    def jloss(q, k, v):
+        ke, ve = jnp.repeat(k, 2, axis=2), jnp.repeat(v, 2, axis=2)
+        return jnp.sum(jat.flash_attention(q, ke, ve, causal=True) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(lambda q, k, v: (tat.flash_attention(
+        q, k, v, causal=True) * torch.from_numpy(w)).sum(), q, k, v)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(wnt), **GTOL)
+
+
+def _merge(o1, l1, o2, l2, where, exp, log, maximum):
+    """Two partial results merged by their logsumexps (ring attention's
+    merge, ray_tpu/ops/ring_attention.py), for [b, h, q] lse."""
+    l_max = maximum(l1, l2)
+    safe = where(l_max <= -5e29, 0.0 * l_max, l_max)
+    w1, w2 = exp(l1 - safe), exp(l2 - safe)
+    denom = maximum(w1 + w2, 1e-30 + 0.0 * w1)
+
+    def bc(x):
+        return x.swapaxes(1, 2)[..., None]
+
+    return (o1 * bc(w1) + o2 * bc(w2)) / bc(denom)
+
+
+def test_flash_chunk_lse_gradient_through_merge_matches_jax():
+    """Two chunks merged by lse equal attention over the concatenated
+    keys, gradients included: the lse output's gradient (dlse) reaches
+    q, k and v (mirrors tests/test_ops_attention.py)."""
+    b, s, h, d = 1, 128, 2, 32
+    q, k, v = _qkv(21, b, s, s, h, d)
+
+    def jloss(q, k, v):
+        o1, l1 = jat.flash_attention_chunk(q, k, v, s, 0, causal=True,
+                                           block_q=64, block_k=64)
+        o2, l2 = jat.flash_attention_chunk(q, k, v, s, s, causal=True,
+                                           block_q=64, block_k=64)
+        o = _merge(o1, l1.reshape(b, h, s), o2, l2.reshape(b, h, s),
+                   jnp.where, jnp.exp, jnp.log, jnp.maximum)
+        return jnp.sum(o ** 2)
+
+    def tloss(q, k, v):
+        o1, l1 = tat.flash_attention_chunk(q, k, v, s, 0, causal=True)
+        o2, l2 = tat.flash_attention_chunk(q, k, v, s, s, causal=True)
+        o = _merge(o1, l1.reshape(b, h, s), o2, l2.reshape(b, h, s),
+                   torch.where, torch.exp, torch.log, torch.maximum)
+        return (o ** 2).sum()
+
+    def ref_loss(q, k, v):
+        kk, vv = torch.cat([k, k], 1), torch.cat([v, v], 1)
+        return (tat.attention_reference(q, kk, vv, causal=True) ** 2).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(tloss, q, k, v)
+    ref = _port_grads(ref_loss, q, k, v)
+    for g, wnt, r in zip(got, want, ref):
+        np.testing.assert_allclose(g, np.asarray(wnt), **GTOL)
+        np.testing.assert_allclose(g, r, **GTOL)

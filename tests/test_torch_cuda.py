@@ -27,6 +27,9 @@ ttf = importlib.import_module(f"{PORT}.models.transformer")
 tat = importlib.import_module(f"{PORT}.ops.attention")
 tpa = importlib.import_module(f"{PORT}.ops.paged_attention")
 tse = importlib.import_module(f"{PORT}.serve.llm_engine")
+tce = importlib.import_module(f"{PORT}.ops.fused_ce")
+tts = importlib.import_module(f"{PORT}.train.train_state")
+toptim = importlib.import_module(f"{PORT}.train.optim")
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +224,150 @@ def test_forward_on_cuda_matches_cpu(cuda, dtype):
     err = (got.cpu() - want).abs().max().item()
     tol = 1e-4 if dtype == torch.float32 else 0.03 * want.abs().max().item()
     assert err <= tol, err
+
+
+BWD_CASES = {
+    # name: (b, sq, sk, h, hk, d, q_off, kv_off, causal)
+    "causal": (2, 128, 128, 4, 4, 64, 0, 0, True),
+    "noncausal": (1, 72, 100, 2, 2, 64, 0, 0, False),
+    "gqa": (2, 130, 130, 16, 4, 128, 0, 0, True),
+    "end_aligned": (1, 40, 100, 2, 2, 32, 60, 0, True),
+    # Rows 0..99 see no key (lse = -1e30): zero gradient, no NaN.
+    "masked_rows": (1, 160, 96, 4, 2, 64, 100, 200, True),
+    "future": (1, 32, 64, 2, 2, 32, 0, 500, True),
+    # Head dims the bf16 tensor-core kernels do not take.
+    "odd_dim": (1, 50, 70, 4, 2, 24, 20, 0, True),
+    "wide_dim": (1, 40, 40, 2, 2, 192, 0, 0, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_matches_plain(cuda, dtype, case):
+    """dq, dk, dv of the kernels against flash_attention_chunk_bwd_plain
+    on the same saved (out, lse) and cotangents, with a nonzero dlse.
+    Tolerance relative to the largest plain gradient: fp32 1e-5 (sums in
+    another order); bf16 1e-2 (both round p and ds to bf16 at the same
+    points, then the fp32 sums, taken in another order, round to bf16:
+    one bf16 ulp, 2^-8, of the largest value)."""
+    b, sq, sk, h, hk, d, q_off, kv_off, causal = BWD_CASES[case]
+    rng = np.random.default_rng(sq * 7 + d)
+    q = _rand(rng, (b, sq, h, d), dtype, cuda)
+    k = _rand(rng, (b, sk, hk, d), dtype, cuda)
+    v = _rand(rng, (b, sk, hk, d), dtype, cuda)
+    dout = _rand(rng, (b, sq, h, d), dtype, cuda)
+    dlse = _rand(rng, (b * h, sq), torch.float32, cuda)
+    out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal)
+    scale = 1.0 / math.sqrt(d)
+    before = (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches)
+    got = tat._flash_chunk_bwd_cuda(q, k, v, out, lse, dout, dlse, q_off,
+                                    kv_off, causal, scale)
+    torch.cuda.synchronize()
+    assert (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
+                                               q_off, kv_off, causal, scale)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    dead = (lse <= tat._NEG_INF / 2).reshape(b, h, sq).all(1)  # [b, sq]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert not torch.isnan(g).any(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * max(w.float().abs().max().item(), 1.0), (name,
+                                                                     err)
+    assert torch.all(got[0][dead] == 0)
+    if case == "future":
+        assert all(torch.all(g == 0) for g in got)
+
+
+def test_flash_backward_through_autograd_on_cuda(cuda):
+    """The autograd Function on CUDA tensors launches both backward
+    kernels once per call, through out and lse."""
+    rng = np.random.default_rng(11)
+    q, k, v = (_rand(rng, (1, 64, 4, 64), torch.bfloat16, cuda)
+               .requires_grad_() for _ in range(3))
+    before = (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches)
+    out, lse = tat.flash_attention_chunk(q, k, v, 0, 0)
+    (out.float().square().sum() + lse.sum()).backward()
+    assert (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+def test_backward_never_allocates_s_by_s(cuda):
+    """A causal backward at s = 8192 stays far below the b*h*s^2*4 bytes
+    of one fp32 score matrix (the card counterpart of
+    tests/test_ops_attention.py::test_backward_never_materializes_s_by_s)."""
+    b, s, h, d = 1, 8192, 2, 64
+    rng = np.random.default_rng(12)
+    q, k, v = (_rand(rng, (b, s, h, d), torch.bfloat16, cuda)
+               .requires_grad_() for _ in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = tat.flash_attention(q, k, v, causal=True)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < b * h * s * s * 4 / 16, peak
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """ShardedTrainStep at the tiny config in fp32 (full remat, unfused CE
+    so that nothing rounds to bf16): two steps on the card (flash
+    forward, dq and dk/dv kernels) and two on the CPU (their plain
+    versions) from the same params and batches.  Losses to rtol 1e-5
+    (fp32, sums in other orders); params to 1e-3 of the learning rate
+    (Adam divides each gradient by its own RMS, so a small gradient's
+    summation-order error reaches its update)."""
+    cfg = ttf.TransformerConfig.tiny(dtype=torch.float32)
+    opt = dict(learning_rate=1e-2, warmup_steps=1, total_steps=10)
+    on_cpu = tts.ShardedTrainStep(cfg, device="cpu",
+                                  optimizer=tts.default_optimizer(**opt))
+    on_card = tts.ShardedTrainStep(cfg, device=cuda,
+                                   optimizer=tts.default_optimizer(**opt))
+    cpu_state = on_cpu.init(0)
+    params = toptim.tree_map(lambda t: t.to(cuda), cpu_state["params"])
+    card_state = {"params": params,
+                  "opt_state": on_card.optimizer.init(params), "step": 0}
+    kernels = (tat.FLASH_FWD, tat.FLASH_BWD_DQ, tat.FLASH_BWD_DKV)
+    before = [k.launches for k in kernels]
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 65))}
+        cpu_state, cm = on_cpu.step(cpu_state, batch)
+        card_state, gm = on_card.step(card_state, batch)
+        np.testing.assert_allclose(gm["loss"].item(), cm["loss"].item(),
+                                   rtol=1e-5)
+    L = cfg.num_layers  # forward + remat recompute, then the backward
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        4 * L, 2 * L, 2 * L]
+    for a, b in zip(toptim.tree_leaves(card_state["params"]),
+                    toptim.tree_leaves(cpu_state["params"])):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+
+
+def test_fused_ce_on_cuda_matches_cpu(cuda):
+    """fused_ce_nll on the card (fp32-output products of bf16 operands)
+    against the CPU (bf16 operands widened to fp32): the products are
+    exact on both, the sums run in other orders, so nll agrees to 1e-5
+    relative; dlogits round to bf16 before the backward products, where
+    an order difference can flip a rounding, so dx and dw agree to one
+    bf16 ulp (2^-8) of their largest magnitude."""
+    rng = np.random.default_rng(5)
+    T, h, V = 64, 96, 12800  # two chunks of 6400
+    x = _rand(rng, (T, h), torch.bfloat16, "cpu")
+    w = _rand(rng, (V, h), torch.float32, "cpu") / math.sqrt(h)
+    tgt = torch.from_numpy(rng.integers(0, V, size=T))
+    out = {}
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        wd = w.detach().to(dev).requires_grad_()
+        nll = tce.fused_ce_nll(xd, wd, tgt.to(dev))
+        nll.sum().backward()
+        out[str(dev)] = [t.detach().float().cpu()
+                         for t in (nll, xd.grad, wd.grad)]
+    (n0, dx0, dw0), (n1, dx1, dw1) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(n1.numpy(), n0.numpy(), rtol=1e-5)
+    for a, b in ((dx1, dx0), (dw1, dw0)):
+        assert (a - b).abs().max() <= 2 ** -8 * b.abs().max()

@@ -55,7 +55,9 @@ def test_no_jax_or_reference_imports(script):
 
 def test_every_module_imports_without_jax():
     names = sorted(_module_name(p) for p in _modules())
-    assert f"{PORT}.serve.llm_engine" in names
+    assert {f"{PORT}.{m}" for m in (
+        "serve.llm_engine", "ops.attention", "ops.fused_ce", "train.optim",
+        "train.train_state", "bench")} <= set(names)
     code = ("import sys\n"
             "for blocked in ('jax', 'jaxlib', 'ray_tpu'):\n"
             "    sys.modules[blocked] = None\n"
