@@ -6,14 +6,19 @@ Phases, each of which raises (exit code != 0) if it fails:
 
   1. the card: name and power limit (nvidia-smi) and torch's device name;
   2. build every CUDA kernel of ray_tpu_torch/csrc/ with nvcc, in
-     parallel, and print each kernel's registers and spills;
+     parallel, and print each kernel's registers and spills; the Hopper
+     kernels (flash_fwd_sm90, flash_bwd_dkv_sm90) must not spill, and
+     their code (cuobjdump -sass) must hold wgmma (HGMMA) and TMA loads
+     (UTMALDG);
   3. hold each kernel against its plain PyTorch version, in bf16 and
      fp32, at Llama-2-7B shapes (H = KVH = 32, D = 128, page 128) and at
      a GQA shape (H = 16, KVH = 4): ragged contexts with a zero row,
-     dropped write rows, sq < sk, offsets and a fully masked chunk;
+     dropped write rows, sq < sk, offsets and a fully masked chunk; bf16
+     flash forwards through both the Hopper and the PR 2 kernel;
   4. the main path: LLMEngine serving 12 greedy requests on
      Llama-2-7B at full width and depth with random bf16 weights, with
-     every kernel's launch count read around that run;
+     every kernel's launch count read around that run (every forward
+     through the Hopper kernel);
   5. the engine's prefill and decode rates, the card's busy share and
      busiest kernels over an admission step and a few decode steps
      (torch.profiler), and each kernel's time at the
@@ -26,19 +31,24 @@ Phases, each of which raises (exit code != 0) if it fails:
      in bf16 and fp32, at the training shape (b = 8, H = KVH = 14,
      D = 128, s = 2048, causal; the forward there too), a GQA shape,
      sq < sk, a non-causal chunk and an offset chunk with fully masked
-     rows and a nonzero lse cotangent;
+     rows and a nonzero lse cotangent (bf16 dk/dv through both the
+     Hopper and the PR 2 kernel); then the Hopper forward and dk/dv at
+     the serving prefill shape and at edge cases (lengths off the tiles,
+     offsets, GQA 32 / 8, masked rows, no keys, s = 4096);
   8. the training path: ShardedTrainStep on the 0.9B headline config of
      ray_tpu_torch/bench.py (16 layers, hidden 1792, 14 heads, full
      remat, fused CE, AdamW with bf16 moments) at b = 8, s = 2048 with
      random weights from seed 0: a warm-up step, 6 timed steps, tokens/s,
      train_mfu, peak memory, the card's busy share over a step, and the
-     flash kernels' launches per step read around the run;
+     flash kernels' launches per step read around the run (32 Hopper
+     forwards, 16 dq, 16 Hopper dk/dv, none of the PR 2 variants);
   9. the training path with its flash kernels against the plain path on
      the card: loss and every gradient at full width with 2 layers, bf16
      and fp32;
  10. the training kernels' times at the training shape beside their
-     bounds, the plain backward's time and one PyTorch backward of the
-     same attention.
+     bounds, achieved TFLOP/s and PR 2's times, the plain backward's time
+     and one PyTorch backward of the same attention; the PR 2 forward and
+     dk/dv kernels are timed beside the Hopper ones.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -52,6 +62,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -102,10 +113,29 @@ KERNELS = {
     "flash_bwd_dkv": dict(
         kernel=tat.FLASH_BWD_DKV, source="ray_tpu_torch/csrc/flash_bwd.cu",
         replaces="ray_tpu/ops/attention.py:267"),
+    # The Hopper kernels that take over bf16 head dims 64 and 128 from the
+    # two rows above (flash_variant); those rows keep fp32 and other dims.
+    "flash_fwd_sm90": dict(
+        kernel=tat.FLASH_FWD_SM90,
+        source="ray_tpu_torch/csrc/flash_fwd_sm90.cu",
+        replaces="ray_tpu/ops/attention.py:92"),
+    "flash_bwd_dkv_sm90": dict(
+        kernel=tat.FLASH_BWD_DKV_SM90,
+        source="ray_tpu_torch/csrc/flash_bwd_sm90.cu",
+        replaces="ray_tpu/ops/attention.py:267"),
 }
-# The kernels each main path runs (flash_fwd runs on both).
-SERVE_KERNELS = ("paged_decode_attention", "row_write", "flash_fwd")
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The kernels each main path runs (flash_fwd_sm90 runs on both), and the
+# older variants that must not run there (both paths are bf16, d = 128).
+SERVE_KERNELS = ("paged_decode_attention", "row_write", "flash_fwd_sm90")
+TRAIN_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq", "flash_bwd_dkv_sm90")
+REPLACED = ("flash_fwd", "flash_bwd_dkv")
+SM90_KERNELS = {"flash_fwd_sm90": "flash_fwd_sm90_kernel",
+                "flash_bwd_sm90": "flash_bwd_dkv_sm90_kernel"}
+# The PR 2 kernels' device ms at the timed shapes (PERF.md, NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's times of both variants.
+PR2_MS = {"flash_fwd (prefill shape)": 0.4372,
+          "flash_fwd (training shape)": 1.4257,
+          "flash_bwd_dkv": 1.9133, "flash_bwd_dq": 1.6271}
 # Backward kernels vs their plain version, relative to the largest plain
 # gradient.  fp32: sums in another order.  bf16: both round p and ds to
 # bf16 at the same points; the fp32 sums, taken in another order, round
@@ -219,26 +249,90 @@ def phase_card():
 
 
 def phase_build():
+    """Build every kernel source; print each kernel's registers and
+    spills, and for the Hopper kernels their wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions in the built code.  Raises if a Hopper kernel
+    spills or has none of either."""
     t0 = time.perf_counter()
     report = _build.build(force=True)
     print(f"[build] {len(report)} sources in "
           f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    spilled = {}
     for src, info in sorted(report.items()):
         print(f"[build] {src}.cu {info['seconds']:.1f} s")
         entry, spills = None, ""
         for line in info["log"].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:  # mangled name -> "kernel_name I<template args>E"
-                t = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", m.group(1))
+                t = re.search(r"\d+([a-z_][a-z0-9_]*_kernel)(I\w*?E)?E",
+                              m.group(1))
                 entry = (t.group(1) + (t.group(2) or "")) if t else m.group(1)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and entry:
                 spills = f"spills {m.group(1)}/{m.group(2)} B"
+                spilled[entry] = int(m.group(1)) + int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
-                print(f"[build]   {entry}: {m.group(1)} registers, {spills}")
+                print(f"[build]   {entry}: {m.group(1)} registers, {spills}; "
+                      f"{line.strip()}")
                 entry = None
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src, kernel in SM90_KERNELS.items():
+        bad = [e for e, n in spilled.items() if e.startswith(kernel) and n]
+        check(not bad, f"{bad} spill registers")
+        sass = subprocess.run([cuobjdump, "-sass", _build.library_path(src)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = [0, 0]
+            elif fn:
+                counts[fn][0] += "HGMMA" in line
+                counts[fn][1] += "UTMALDG" in line
+        mine = {f: c for f, c in counts.items() if kernel in f}
+        check(mine, f"{kernel} not found in {src}'s code")
+        for f, (hgmma, utmaldg) in sorted(mine.items()):
+            print(f"[build]   {src} {f}: {hgmma} HGMMA, {utmaldg} UTMALDG "
+                  f"instructions (cuobjdump -sass)")
+            check(hgmma > 0 and utmaldg > 0,
+                  f"{f} runs without wgmma or TMA")
+
+
+def check_flash_fwd(kname, tag, q, k, v, q_off, kv_off, causal, sm90):
+    """One forward variant against the plain version: out to TOL, lse
+    to 1e-3 + TOL, rows that see no key exactly out = 0 and lse = -1e30,
+    no NaN.  Returns the largest out error."""
+    dtype, (b, sq, H, D) = q.dtype, q.shape
+    out, lse = tat._flash_chunk_cuda(q, k, v, q_off, kv_off, causal,
+                                     1.0 / math.sqrt(D), sm90=sm90)
+    torch.cuda.synchronize()
+    if k.shape[1]:
+        o_ref, l_ref = tat.flash_attention_chunk_plain(q, k, v, q_off,
+                                                       kv_off, causal)
+    else:  # no keys: the plain version cannot reduce an empty row (ROADMAP)
+        o_ref = torch.zeros_like(q)
+        l_ref = torch.full((b * H, sq), tat._NEG_INF, device=q.device)
+    check(not (torch.isnan(out).any() or torch.isnan(lse).any()).item(),
+          f"{kname} {tag}: NaN")
+    masked = l_ref <= tat._NEG_INF / 2
+    check(torch.equal(lse <= tat._NEG_INF / 2, masked)
+          and torch.all(lse[masked] == tat._NEG_INF),
+          f"{kname} {tag}: flash lse sentinel rows differ")
+    rows = masked.reshape(b, H, sq).any(dim=1)
+    check(torch.all(out[rows] == 0), f"{kname} {tag}: masked rows not zero")
+    err_f = (out.float() - o_ref.float()).abs().max().item()
+    err_l = ((lse - l_ref)[~masked].abs().max().item()
+             if (~masked).any() else 0.0)
+    print(f"[kernel] {kname} {tag}: max_abs_err out {err_f:.3e} lse "
+          f"{err_l:.3e} (tolerance {TOL[dtype]:g}); masked rows "
+          f"{int(masked.sum())}")
+    check(err_f <= TOL[dtype] and err_l <= 1e-3 + TOL[dtype],
+          f"{kname} {tag}: flash forward disagrees")
+    return err_f
 
 
 def phase_kernels(dev):
@@ -287,34 +381,22 @@ def phase_kernels(dev):
             cases = [(2, 300, 300, 0, 0, True), (1, 128, 300, 172, 0, True),
                      (1, 256, 320, 200, 100, True),
                      (1, 64, 128, 0, 1000, True), (1, 100, 300, 0, 0, False)]
+            # bf16 through both forward variants (the Hopper kernel the
+            # wrapper picks, and the older one forced), fp32 the older one.
+            variants = ([True, False] if dtype == torch.bfloat16
+                        else [False])
             for b, sq, sk, q_off, kv_off, causal in cases:
                 qf = rand(gen, (b, sq, H, D), dtype, dev)
                 kf = rand(gen, (b, sk, KVH, D), dtype, dev)
                 vf = rand(gen, (b, sk, KVH, D), dtype, dev)
-                out, lse = tat.flash_attention_chunk(qf, kf, vf, q_off,
-                                                     kv_off, causal)
-                torch.cuda.synchronize()
-                o_ref, l_ref = tat.flash_attention_chunk_plain(
-                    qf, kf, vf, q_off, kv_off, causal)
-                masked = l_ref <= tat._NEG_INF / 2
-                check(torch.equal(lse <= tat._NEG_INF / 2, masked)
-                      and torch.all(lse[masked] == tat._NEG_INF),
-                      f"{tag}: flash lse sentinel rows differ")
-                rows = masked.reshape(b, H, sq).any(dim=1)
-                check(torch.all(out[rows] == 0),
-                      f"{tag}: fully masked rows not zero")
-                err_f = (out.float() - o_ref.float()).abs().max().item()
-                err_l = ((lse - l_ref)[~masked].abs().max().item()
-                         if (~masked).any() else 0.0)
-                print(f"[kernel] flash_fwd {tag} b={b} sq={sq} sk={sk} "
-                      f"q_off={q_off} kv_off={kv_off} causal={causal}: "
-                      f"max_abs_err out {err_f:.3e} lse {err_l:.3e} "
-                      f"(tolerance {TOL[dtype]:g}); masked rows "
-                      f"{int(masked.sum())}")
-                check(err_f <= TOL[dtype] and err_l <= 1e-3 + TOL[dtype],
-                      "flash forward disagrees")
-                if shape_name == "llama2_7b" and dtype == torch.bfloat16:
-                    worst["flash_fwd"] = max(worst["flash_fwd"], err_f)
+                for sm90 in variants:
+                    kname = "flash_fwd_sm90" if sm90 else "flash_fwd"
+                    err_f = check_flash_fwd(
+                        kname, f"{tag} b={b} sq={sq} sk={sk} q_off={q_off} "
+                        f"kv_off={kv_off} causal={causal}", qf, kf, vf,
+                        q_off, kv_off, causal, sm90)
+                    if shape_name == "llama2_7b" and dtype == torch.bfloat16:
+                        worst[kname] = max(worst[kname], err_f)
             if shape_name == "llama2_7b" and dtype == torch.bfloat16:
                 worst["paged_decode_attention"] = err
     return worst
@@ -360,8 +442,8 @@ def phase_main_path(dev, params, cfg):
         return out
 
     eng._admit, eng._decode = timed_admit, timed_decode
-    for name in SERVE_KERNELS:
-        KERNELS[name]["kernel"].launches = 0
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
     t0 = time.perf_counter()
     ids = [eng.add_request(p, n) for p, n in zip(prompts, max_new)]
     done, steps = {}, 0
@@ -370,8 +452,8 @@ def phase_main_path(dev, params, cfg):
         steps += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: KERNELS[name]["kernel"].launches
-                for name in SERVE_KERNELS}
+    launches = {name: spec["kernel"].launches
+                for name, spec in KERNELS.items()}
     eng._admit, eng._decode = inner_admit, inner_decode
 
     for rid, n in zip(ids, max_new):
@@ -382,8 +464,12 @@ def phase_main_path(dev, params, cfg):
     check(eng.prefix_cache.hits >= 1, "the shared prefix never hit")
     check(eng.allocator.num_free + eng.prefix_cache.num_idle
           == eng.allocator.num_pages - 1, "pages leaked")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the main path")
+    for name in REPLACED:  # every forward is bf16 at d = 128
+        check(launches[name] == 0,
+              f"{name} ran on the main path beside its Hopper kernel")
     prompt_tokens = sum(map(len, prompts)) - eng.prefix_cache.tokens_saved
     rates = dict(prefill_tok_s=prompt_tokens / admit_s[0],
                  decode_tok_s=decode_tokens[0] / decode_s[0])
@@ -563,15 +649,20 @@ def phase_timings(dev, eng, prompts, max_new, smi):
     kf = rand(gen, (b, s, KVH, D), bf, dev)
     vf = rand(gen, (b, s, KVH, D), bf, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (qf, kf, vf))
-    cases["flash_fwd"] = dict(
-        kernel=lambda: tat.flash_attention(qf, kf, vf),
-        plain=lambda: tat.flash_attention_chunk_plain(qf, kf, vf, 0, 0),
-        library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True),
-        n=(20, 5),
-        bytes=(2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + b * H * s * 4,
-        flops=4 * b * H * D * s * (s + 1) // 2,
-        shape=f"b={b} s={s} H={H} KVH={KVH} D={D} causal")
+    scale = 1.0 / math.sqrt(D)
+    for kname, sm90 in (("flash_fwd_sm90", True), ("flash_fwd", False)):
+        cases[kname] = dict(
+            kernel=lambda sm90=sm90: tat._flash_chunk_cuda(
+                qf, kf, vf, 0, 0, True, scale, sm90=sm90),
+            plain=lambda: tat.flash_attention_chunk_plain(qf, kf, vf, 0, 0),
+            library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True),
+            n=(20, 5),
+            bytes=(2 * b * s * H * D + 2 * b * s * KVH * D) * 2
+            + b * H * s * 4,
+            flops=4 * b * H * D * s * (s + 1) // 2,
+            pr2="flash_fwd (prefill shape)",
+            shape=f"b={b} s={s} H={H} KVH={KVH} D={D} causal")
 
     out = {}
     for name, c in cases.items():
@@ -587,8 +678,13 @@ def phase_timings(dev, eng, prompts, max_new, smi):
             bound_by="bytes" if t_bytes >= t_ops else "operations")
         lib_text = ("none (no single PyTorch call)" if lib is None
                     else f"{lib[0]:.4f} ms (eager {lib[1]:.4f})")
+        extra = ""
+        if c["flops"]:
+            extra = f", {c['flops'] / ms / 1e9:.1f} TFLOP/s"
+        if "pr2" in c:
+            extra += f", PR 2 kernel {PR2_MS[c['pr2']]:.4f} ms (PERF.md)"
         print(f"[time] {name} [{c['shape']}] on {smi}: device {ms:.4f} ms "
-              f"(eager, host included: {eager:.4f}), bound "
+              f"(eager, host included: {eager:.4f}{extra}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{plain_ms:.4f} ms (eager {plain_eager:.4f}), library "
               f"{lib_text}")
@@ -616,7 +712,9 @@ def phase_kernels_bwd(dev):
     shape the forward's (out, lse) against its plain version too; returns
     the largest bf16 error of each kernel at the training shape."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_fwd": 0.0}
+    worst = {k: 0.0 for k in ("flash_bwd_dq", "flash_bwd_dkv",
+                              "flash_bwd_dkv_sm90", "flash_fwd",
+                              "flash_fwd_sm90")}
     D = 128
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, sq, sk, H, KVH, q_off, kv_off, causal in BWD_CASES:
@@ -634,18 +732,12 @@ def phase_kernels_bwd(dev):
             tag = f"{name} {str(dtype)[6:]} b={b} sq={sq} sk={sk} H={H} " \
                   f"KVH={KVH} q_off={q_off} kv_off={kv_off} causal={causal}"
             if name == "train":
-                o_ref, l_ref = tat.flash_attention_chunk_plain(
-                    q, k, v, q_off, kv_off, causal, scale)
-                err_f = (out.float() - o_ref.float()).abs().max().item()
-                err_l = (lse - l_ref).abs().max().item()
-                print(f"[kernel] flash_fwd {tag}: max_abs_err out "
-                      f"{err_f:.3e} lse {err_l:.3e} (tolerance "
-                      f"{TOL[dtype]:g})")
-                check(err_f <= TOL[dtype] and err_l <= 1e-3 + TOL[dtype],
-                      f"{tag}: flash forward disagrees")
-                if dtype == torch.bfloat16:
-                    worst["flash_fwd"] = err_f
-                del o_ref, l_ref
+                for sm90 in ([True, False] if dtype == torch.bfloat16
+                             else [False]):
+                    kname = "flash_fwd_sm90" if sm90 else "flash_fwd"
+                    err_f = check_flash_fwd(kname, tag, q, k, v, q_off,
+                                            kv_off, causal, sm90)
+                    worst[kname] = max(worst[kname], err_f)
             want = tat.flash_attention_chunk_bwd_plain(
                 q, k, v, out, lse, do, dlse, q_off, kv_off, causal, scale)
             check(not any(torch.isnan(g).any().item() for g in got),
@@ -667,10 +759,93 @@ def phase_kernels_bwd(dev):
                   f"{BWD_REL_TOL[dtype]:g} x max |plain|, max |plain dq| "
                   f"{want[0].float().abs().max().item():.3e}); fully "
                   f"masked rows {int(dead.sum())}; no NaN")
+            if dtype == torch.bfloat16:
+                # The PR 2 dk/dv kernel, forced, on the same inputs.
+                corr = tat._bwd_corr(out, do, dlse, b, H, sq)
+                old = tat.flash_bwd_dkv(q, k, v, do, lse, corr, q_off,
+                                        kv_off, causal, scale, sm90=False)
+                old_errs = [(g.float() - w.float()).abs().max().item()
+                            for g, w in zip(old, want[1:])]
+                print(f"[kernel] flash_bwd_dkv (PR 2 kernel) {tag}: "
+                      f"max_abs_err dk {old_errs[0]:.3e} dv "
+                      f"{old_errs[1]:.3e}")
+                for err, w in zip(old_errs, want[1:]):
+                    check(err <= BWD_REL_TOL[dtype] * max(
+                        w.float().abs().max().item(), 1.0),
+                        f"{tag}: PR 2 dk/dv kernel disagrees")
+                if name == "train":
+                    worst["flash_bwd_dkv"] = max(old_errs)
+                del old, corr
             if name == "train" and dtype == torch.bfloat16:
                 worst["flash_bwd_dq"] = errs[0]
-                worst["flash_bwd_dkv"] = max(errs[1:])
+                worst["flash_bwd_dkv_sm90"] = max(errs[1:])
             del q, k, v, do, out, lse, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+# The Hopper kernels' edge cases, bf16, D = 128: (name, b, sq, sk, H, KVH,
+# q_off, kv_off, causal).  "prefill" is the serving path's timed shape.
+SM90_CASES = [
+    ("prefill", 4, 1024, 1024, 32, 32, 0, 0, True),
+    ("len1", 2, 1, 1, 32, 32, 0, 0, True),
+    ("len63", 2, 63, 63, 32, 32, 0, 0, True),
+    ("len65_end_aligned", 1, 65, 129, 32, 32, 64, 0, True),
+    ("len129_noncausal", 1, 129, 65, 32, 32, 0, 0, False),
+    ("len1000", 1, 1000, 1000, 32, 32, 0, 0, True),
+    ("offsets", 1, 200, 300, 32, 32, 500, 370, True),
+    ("gqa_32_8", 1, 256, 256, 32, 8, 0, 0, True),
+    ("masked_rows", 1, 160, 96, 32, 8, 100, 200, True),
+    ("no_keys", 1, 33, 0, 32, 32, 0, 0, True),
+    ("long_4096", 1, 4096, 4096, 4, 4, 0, 0, True),
+]
+
+
+def phase_kernels_sm90(dev):
+    """The Hopper forward and dk/dv kernels against the plain versions at
+    the serving path's prefill shape and at edges TMA and the ring must
+    get right: lengths off the tiles (zero fill), sq < sk with offsets,
+    GQA 32 / 8, fully masked rows, no keys, a ring that wraps 16 times.
+    Returns the largest error of each at the prefill shape."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = {"flash_fwd_sm90": 0.0, "flash_bwd_dkv_sm90": 0.0}
+    D, bf = 128, torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    for name, b, sq, sk, H, KVH, q_off, kv_off, causal in SM90_CASES:
+        tag = (f"{name} b={b} sq={sq} sk={sk} H={H} KVH={KVH} q_off={q_off} "
+               f"kv_off={kv_off} causal={causal}")
+        q = rand(gen, (b, sq, H, D), bf, dev)
+        k = rand(gen, (b, sk, KVH, D), bf, dev)
+        v = rand(gen, (b, sk, KVH, D), bf, dev)
+        do = rand(gen, (b, sq, H, D), bf, dev)
+        dlse = torch.randn((b * H, sq), generator=gen, device=dev)
+        err_f = check_flash_fwd("flash_fwd_sm90", tag, q, k, v, q_off,
+                                kv_off, causal, True)
+        out, lse = tat._flash_chunk_cuda(q, k, v, q_off, kv_off, causal,
+                                         scale, sm90=True)
+        corr = tat._bwd_corr(out, do, dlse, b, H, sq)
+        got = tat.flash_bwd_dkv(q, k, v, do, lse, corr, q_off, kv_off,
+                                causal, scale, sm90=True)
+        torch.cuda.synchronize()
+        want = tat.flash_attention_chunk_bwd_plain(
+            q, k, v, out, lse, do, dlse, q_off, kv_off, causal, scale)[1:]
+        errs = []
+        for g, w in zip(got, want):
+            if not g.numel():  # no keys: nothing to compare
+                errs.append(0.0)
+                continue
+            check(not torch.isnan(g).any().item(), f"{tag}: NaN in dk/dv")
+            err = (g.float() - w.float()).abs().max().item()
+            ref = max(w.float().abs().max().item(), 1.0)
+            check(err <= BWD_REL_TOL[bf] * ref,
+                  f"{tag}: Hopper dk/dv disagrees ({err} vs max {ref})")
+            errs.append(err)
+        print(f"[kernel] flash_bwd_dkv_sm90 {tag}: max_abs_err dk "
+              f"{errs[0]:.3e} dv {errs[1]:.3e} (tolerance "
+              f"{BWD_REL_TOL[bf]:g} x max |plain|); no NaN")
+        if name == "prefill":
+            worst = {"flash_fwd_sm90": err_f, "flash_bwd_dkv_sm90": max(errs)}
+        del q, k, v, do, out, lse, corr, got, want
     torch.cuda.empty_cache()
     return worst
 
@@ -708,8 +883,8 @@ def phase_train(dev, smi):
     print(f"[train] warm-up step (learning rate 0): loss {first:.4f}, "
           f"{time.perf_counter() - t0:.2f} s")
 
-    for n in TRAIN_KERNELS:
-        KERNELS[n]["kernel"].launches = 0
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
     torch.cuda.reset_peak_memory_stats()
     losses = []
     torch.cuda.synchronize()
@@ -719,7 +894,8 @@ def phase_train(dev, smi):
         losses.append(m["loss"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: KERNELS[n]["kernel"].launches for n in TRAIN_KERNELS}
+    launches = {n: KERNELS[n]["kernel"].launches
+                for n in TRAIN_KERNELS + REPLACED}
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated()
     tok_s = B * S * steps / dt
@@ -731,10 +907,12 @@ def phase_train(dev, smi):
     L = cfg.num_layers
     per_step = {n: c / steps for n, c in launches.items()}
     print(f"[train] launches per step {json.dumps(per_step)} (expected "
-          f"flash_fwd {2 * L}: forward + remat recompute; dq and dk/dv "
-          f"{L} each)")
-    check(launches == {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-                       "flash_bwd_dkv": L * steps},
+          f"flash_fwd_sm90 {2 * L}: forward + remat recompute; dq and "
+          f"dk/dv {L} each; the PR 2 forward and dk/dv kernels 0)")
+    check(launches == {"flash_fwd_sm90": 2 * L * steps,
+                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv_sm90": L * steps,
+                       "flash_fwd": 0, "flash_bwd_dkv": 0},
           "training kernel launches differ from the expected count")
     print(f"[train] on {smi}: {dt / steps * 1e3:.1f} ms per step, "
           f"{tok_s:.0f} tokens/s, train_mfu {mfu:.4f} (model FLOPs "
@@ -850,39 +1028,57 @@ def phase_timings_train(dev, smi):
         tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, do, None, 0,
                                             0, True, scale)
 
+    fwd = dict(plain=lambda: tat.flash_attention_chunk_plain(q, k, v, 0, 0),
+               library=lambda: F.scaled_dot_product_attention(
+                   qt.detach(), kt.detach(), vt.detach(), is_causal=True),
+               flops=4 * b * H * D * pairs, bytes=4 * elem + rows,
+               what="forward")
+    bwd = dict(plain=plain_bwd, library=sdpa_backward,
+               what="dq + dk/dv together")
     cases = {
+        "flash_fwd_sm90 (training shape)": dict(
+            fwd, kernel=lambda: tat._flash_chunk_cuda(
+                q, k, v, 0, 0, True, scale, sm90=True),
+            pr2="flash_fwd (training shape)"),
         "flash_fwd (training shape)": dict(
-            kernel=lambda: tat.flash_attention(q, k, v),
-            plain=lambda: tat.flash_attention_chunk_plain(q, k, v, 0, 0),
-            library=lambda: F.scaled_dot_product_attention(
-                qt.detach(), kt.detach(), vt.detach(), is_causal=True),
-            flops=4 * b * H * D * pairs, bytes=4 * elem + rows),
+            fwd, kernel=lambda: tat._flash_chunk_cuda(
+                q, k, v, 0, 0, True, scale, sm90=False),
+            pr2="flash_fwd (training shape)"),
         "flash_bwd_dq": dict(
-            kernel=lambda: tat.flash_bwd_dq(q, k, v, do, lse, corr, 0, 0,
-                                            True, scale),
-            plain=plain_bwd, library=sdpa_backward,
-            flops=6 * b * H * D * pairs, bytes=5 * elem + 2 * rows),
+            bwd, kernel=lambda: tat.flash_bwd_dq(q, k, v, do, lse, corr, 0, 0,
+                                                 True, scale),
+            flops=6 * b * H * D * pairs, bytes=5 * elem + 2 * rows,
+            pr2="flash_bwd_dq"),
+        "flash_bwd_dkv_sm90": dict(
+            bwd, kernel=lambda: tat.flash_bwd_dkv(
+                q, k, v, do, lse, corr, 0, 0, True, scale, sm90=True),
+            flops=8 * b * H * D * pairs, bytes=6 * elem + 2 * rows,
+            pr2="flash_bwd_dkv"),
         "flash_bwd_dkv": dict(
-            kernel=lambda: tat.flash_bwd_dkv(q, k, v, do, lse, corr, 0, 0,
-                                             True, scale),
-            plain=plain_bwd, library=sdpa_backward,
-            flops=8 * b * H * D * pairs, bytes=6 * elem + 2 * rows),
+            bwd, kernel=lambda: tat.flash_bwd_dkv(
+                q, k, v, do, lse, corr, 0, 0, True, scale, sm90=False),
+            flops=8 * b * H * D * pairs, bytes=6 * elem + 2 * rows,
+            pr2="flash_bwd_dkv"),
     }
     shape = f"b={b} s={s} H=KVH={H} D={D} bf16 causal"
-    out_rows = {}
+    out_rows, yardsticks = {}, {}
     for name, c in cases.items():
         ms, eager = time_ms(c["kernel"], 10)
-        plain_ms = time_eager_ms(c["plain"], 2)
-        lib_ms = time_eager_ms(c["library"], 10)
+        if c["what"] not in yardsticks:  # one plain and one library time
+            yardsticks[c["what"]] = (time_eager_ms(c["plain"], 2),
+                                     time_eager_ms(c["library"], 10))
+        plain_ms, lib_ms = yardsticks[c["what"]]
         t_bytes = c["bytes"] / HBM_BYTES_S * 1e3
         t_ops = c["flops"] / PEAK_FLOPS[bf] * 1e3
         r = out_rows[name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
-        what = ("dq + dk/dv together" if "bwd" in name else "forward")
+        what = c["what"]
         print(f"[time] {name} [{shape}] on {smi}: device {ms:.4f} ms "
-              f"(eager, host included: {eager:.4f}), bound "
+              f"(eager, host included: {eager:.4f}; "
+              f"{c['flops'] / ms / 1e9:.1f} TFLOP/s; PR 2 kernel "
+              f"{PR2_MS[c['pr2']]:.4f} ms, PERF.md), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
               f"{c['flops'] / 1e9:.1f} GFLOP, {c['bytes'] / 1e6:.1f} MB), "
               f"plain {plain_ms:.4f} ms ({what}), library {lib_ms:.4f} ms "
@@ -926,7 +1122,8 @@ def main() -> int:
     print(f"[main] serving phases done; device memory still allocated "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    for kname, err in phase_kernels_bwd(dev).items():
+    for kname, err in list(phase_kernels_bwd(dev).items()) + list(
+            phase_kernels_sm90(dev).items()):
         worst[kname] = max(worst.get(kname, 0.0), err)
     train_launches, _ = phase_train(dev, smi)
     phase_train_depth(dev)

@@ -11,9 +11,11 @@
 // reaches device memory: that is the flash structure both kernels below
 // keep.
 //
-// Two kernels, chosen by dtype and head dim:
+// Two kernels, chosen by dtype and head dim.  bf16 with d = 64 or 128 on
+// 16-byte-aligned tensors (both main paths) runs flash_fwd_sm90.cu
+// instead, as ops/attention.py flash_variant decides:
 //
-//  - bf16 with d a multiple of 16 up to 128 (every Llama-family shape):
+//  - bf16 with d a multiple of 16 up to 128:
 //    the tensor cores through mma.sync.m16n8k16 (bf16 operands, fp32
 //    accumulation).  One block of 4 warps per (batch x head, 64 query
 //    rows); each warp owns 16 rows, keeps its Q fragments and its fp32
@@ -23,7 +25,7 @@
 //    conflicts.  S = Q K^T and O += P V are mma.sync products; the online
 //    softmax runs on the S fragments (row max and sums across the four
 //    threads that share a row), and P is rounded to bf16 for P V, as the
-//    TPU kernel casts p to v's dtype.  wgmma and TMA are later work.
+//    TPU kernel casts p to v's dtype.
 //  - every other shape and float32: the CUDA cores in fp32 (bf16
 //    products are exact in fp32).  One block of 128 threads per
 //    (batch x head, 32 query rows); four threads share a row, each

@@ -6,6 +6,8 @@ takes seconds) and loads with ctypes.  Builds happen at first use, never
 at import: the package imports on a host with no nvcc and no GPU.
 `build()` compiles several sources at once, one nvcc process each, and
 returns the compiler's register and shared-memory report (-Xptxas -v).
+A library is rebuilt when its source or any shared header `csrc/*.cuh`
+is newer than it.
 
 A `Kernel` is one C entry point of one source: calling `launch()` builds
 and loads the library if needed, calls the entry point, raises on a
@@ -69,10 +71,22 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
+def headers() -> list:
+    """Paths of the shared headers in csrc/ (any source may include
+    them)."""
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cuh"))
+
+
 def _stale(name: str) -> bool:
+    """True if lib<name>.so is missing or older than its source or than
+    any csrc/*.cuh header."""
     lib = library_path(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return any(os.path.getmtime(p) > built
+               for p in [source_path(name), *headers()])
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False
@@ -114,7 +128,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if missing or
-    older than its source."""
+    older than its source or a csrc/*.cuh header."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

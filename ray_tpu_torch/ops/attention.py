@@ -4,7 +4,7 @@ Port of ray_tpu/ops/attention.py.
 
   - `flash_attention(q, k, v, causal=...)`: tiled online-softmax attention
     that never materializes the s x s score matrix
-    (csrc/flash_fwd.cu).  When sq < sk the windows are end-aligned, as
+    (csrc/flash_fwd_sm90.cu or csrc/flash_fwd.cu).  When sq < sk the windows are end-aligned, as
     in `attention_reference`.
   - `flash_attention_chunk(...)`: the offset-aware form returning
     (out, lse); q_off / kv_off are the global positions of q[:, 0] and
@@ -14,12 +14,18 @@ Port of ray_tpu/ops/attention.py.
     the plain PyTorch versions of the forward and backward kernels,
     taken for CPU tensors.
   - `attention_reference`: plain attention, the numerical ground truth.
+  - `flash_variant`: which kernel a CUDA call runs, from dtype, head dim
+    and alignment: bf16 with head dim 64 or 128 on 16-byte-aligned
+    tensors takes the Hopper kernels (TMA-fed wgmma,
+    csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu for dk/dv); every
+    other shape the kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu.
 
 Layout: q is [batch, seq, heads, head_dim]; k and v may carry fewer heads
 than q (GQA, heads dividing q's), which the kernel reads without
 expanding.  The gradient (`_FlashChunk`) recomputes p from the saved
-lse in two kernels (csrc/flash_bwd.cu): dq per query tile, and dk/dv per
-key tile summed over the GQA group's query heads, so the backward never
+lse in two kernels: dq per query tile (csrc/flash_bwd.cu), and dk/dv per
+key tile summed over the GQA group's query heads (csrc/flash_bwd_sm90.cu
+or csrc/flash_bwd.cu, by `flash_variant`), so the backward never
 materializes the s x s matrix either.  The lse output is differentiable
 (ring attention's merge weights chunks by it).
 """
@@ -48,6 +54,36 @@ _BWD_DIMS = [_c_int] * 9 + [_c_f, _c_int]
 FLASH_BWD_DQ = Kernel("flash_bwd", "flash_bwd_dq", [_c_p] * 7 + _BWD_DIMS)
 FLASH_BWD_DKV = Kernel("flash_bwd", "flash_bwd_dkv",
                        [_c_p] * 8 + _BWD_DIMS)
+# The Hopper kernels take bf16 only: no dtype argument.
+FLASH_FWD_SM90 = Kernel("flash_fwd_sm90", "flash_fwd_sm90",
+                        [_c_p] * 5 + [_c_int] * 9 + [_c_f])
+FLASH_BWD_DKV_SM90 = Kernel("flash_bwd_sm90", "flash_bwd_dkv_sm90",
+                            [_c_p] * 8 + [_c_int] * 9 + [_c_f])
+# Every kernel that computes the forward, and every one that computes
+# dk/dv: a run counts a call of the op by the sum of their launches.
+FLASH_FWD_KERNELS = (FLASH_FWD, FLASH_FWD_SM90)
+FLASH_BWD_DKV_KERNELS = (FLASH_BWD_DKV, FLASH_BWD_DKV_SM90)
+
+SM90_HEAD_DIMS = (64, 128)
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
+    """The kernel a CUDA flash forward or dk/dv call runs: "sm90" (the
+    Hopper wgmma kernels) for bf16 with head dim 64 or 128 on tensors
+    that are all 16-byte aligned (TMA's rule); else "mma_sync" (the
+    older tensor-core kernels: bf16, head dims of 16..128 in steps of
+    16, aligned) or "cuda_cores" (float32 and every other bf16 shape).
+    The one place the choice is made, before launch."""
+    if dtype == torch.bfloat16 and aligned:
+        if head_dim in SM90_HEAD_DIMS:
+            return "sm90"
+        if head_dim % 16 == 0 and head_dim <= 128:
+            return "mma_sync"
+    return "cuda_cores"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def attention_reference(q, k, v, causal: bool = True,
@@ -76,7 +112,10 @@ def _check_qkv(q, k, v) -> None:
 
 
 def _flash_chunk_cuda(q, k, v, q_off: int, kv_off: int, causal: bool,
-                      sm_scale: float):
+                      sm_scale: float, sm90: Optional[bool] = None):
+    """The forward on CUDA tensors, through the kernel `flash_variant`
+    picks (`sm90=False` forces csrc/flash_fwd.cu, to time it beside the
+    Hopper kernel)."""
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -86,11 +125,16 @@ def _flash_chunk_cuda(q, k, v, q_off: int, kv_off: int, causal: bool,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    if sm90 is None:
+        sm90 = flash_variant(q.dtype, d, _aligned(q, k, v, out)) == "sm90"
     if b and sq:
-        FLASH_FWD.launch(
-            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d, q_off,
-            kv_off, int(causal), sm_scale, code)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), b, h, hk, sq, sk, d, q_off, kv_off,
+                int(causal), sm_scale)
+        if sm90:
+            FLASH_FWD_SM90.launch(q.device, *args)
+        else:
+            FLASH_FWD.launch(q.device, *args, code)
     return out, lse
 
 
@@ -220,19 +264,27 @@ def flash_bwd_dq(q, k, v, dout, lse, corr, q_off: int, kv_off: int,
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, corr, q_off: int, kv_off: int,
-                  causal: bool, sm_scale: float):
-    """(dk, dv) through csrc/flash_bwd.cu (CUDA tensors), each K/V head
-    summed over its group of query heads."""
+                  causal: bool, sm_scale: float,
+                  sm90: Optional[bool] = None):
+    """(dk, dv) through the kernel `flash_variant` picks (CUDA tensors),
+    each K/V head summed over its group of query heads.  `sm90=False`
+    forces csrc/flash_bwd.cu, to time it beside the Hopper kernel."""
     code, q, k, v, dout, lse, corr = _bwd_args(q, k, v, lse, dout, corr)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if sm90 is None:
+        sm90 = flash_variant(q.dtype, d,
+                             _aligned(q, k, v, dout, dk, dv)) == "sm90"
     if b and sk:
-        FLASH_BWD_DKV.launch(
-            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), corr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, hk, sq, sk, d, q_off, kv_off, int(causal),
-            sm_scale, code)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), corr.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, h, hk, sq, sk, d, q_off, kv_off,
+                int(causal), sm_scale)
+        if sm90:
+            FLASH_BWD_DKV_SM90.launch(q.device, *args)
+        else:
+            FLASH_BWD_DKV.launch(q.device, *args, code)
     return dk, dv
 
 
@@ -258,8 +310,8 @@ def _flash_chunk_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
 
 class _FlashChunk(torch.autograd.Function):
     """(out, lse) of one chunk, differentiable in q, k and v through both
-    outputs.  CUDA tensors run csrc/flash_fwd.cu forward and
-    csrc/flash_bwd.cu backward; CPU tensors the plain versions."""
+    outputs.  CUDA tensors run the forward and backward kernels
+    `flash_variant` picks; CPU tensors the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_off, kv_off, causal, sm_scale):
@@ -287,8 +339,8 @@ def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
 
     q_off / kv_off: global position of q[:, 0] / k[:, 0] (ints or 0-d
     tensors).  lse is [b*h, sq] float32; rows with no visible keys get
-    out = 0 and lse = -1e30.  CUDA tensors run csrc/flash_fwd.cu (and
-    csrc/flash_bwd.cu for the gradient), CPU tensors the plain versions.
+    out = 0 and lse = -1e30.  CUDA tensors run the kernels
+    `flash_variant` picks, CPU tensors the plain versions.
     Both outputs are differentiable."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -10,6 +10,7 @@ dims that are not powers of two), beside one Llama-2-7B-shaped case per
 kernel.
 """
 
+import ctypes
 import importlib
 import math
 
@@ -51,6 +52,16 @@ def cuda():
 def _rand(rng, shape, dtype, device):
     return torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+
+def _launches(kernels):
+    """Launches of one op, summed over the kernels that compute it."""
+    return sum(k.launches for k in kernels)
+
+
+def _bwd_launches():
+    return (tat.FLASH_BWD_DQ.launches,
+            _launches(tat.FLASH_BWD_DKV_KERNELS))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -195,13 +206,13 @@ def test_engine_on_cuda_matches_cpu(cuda):
     prompts += [prefix + [1, 2], prefix + [3]]
     kw = dict(page_size=4, num_pages=48, max_batch=2)
     want = tse.LLMEngine(cfg, params, device="cpu", **kw).generate(prompts, 7)
-    kernels = (tpa.PAGED_DECODE, tpa.ROW_WRITE, tat.FLASH_FWD)
-    before = [k.launches for k in kernels]
+    kernels = ((tpa.PAGED_DECODE,), (tpa.ROW_WRITE,), tat.FLASH_FWD_KERNELS)
+    before = [_launches(k) for k in kernels]
     eng = tse.LLMEngine(cfg, params, device=cuda, **kw)
     got = eng.generate(prompts, 7)
     assert got == want
     assert eng.prefix_cache.hits >= 1
-    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert all(_launches(k) > b for k, b in zip(kernels, before))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -217,10 +228,10 @@ def test_forward_on_cuda_matches_cpu(cuda, dtype):
     on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
                    if isinstance(v, dict) else v.to(cuda))
                for k, v in params.items()}
-    before = tat.FLASH_FWD.launches
+    before = _launches(tat.FLASH_FWD_KERNELS)
     got = ttf.forward(on_card, tokens.to(cuda), cfg)
     want = ttf.forward(params, tokens, cfg)
-    assert tat.FLASH_FWD.launches == before + cfg.num_layers
+    assert _launches(tat.FLASH_FWD_KERNELS) == before + cfg.num_layers
     err = (got.cpu() - want).abs().max().item()
     tol = 1e-4 if dtype == torch.float32 else 0.03 * want.abs().max().item()
     assert err <= tol, err
@@ -259,12 +270,11 @@ def test_flash_bwd_matches_plain(cuda, dtype, case):
     dlse = _rand(rng, (b * h, sq), torch.float32, cuda)
     out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal)
     scale = 1.0 / math.sqrt(d)
-    before = (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches)
+    before = _bwd_launches()
     got = tat._flash_chunk_bwd_cuda(q, k, v, out, lse, dout, dlse, q_off,
                                     kv_off, causal, scale)
     torch.cuda.synchronize()
-    assert (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert _bwd_launches() == (before[0] + 1, before[1] + 1)
     want = tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
                                                q_off, kv_off, causal, scale)
     rel = 1e-5 if dtype == torch.float32 else 1e-2
@@ -286,11 +296,10 @@ def test_flash_backward_through_autograd_on_cuda(cuda):
     rng = np.random.default_rng(11)
     q, k, v = (_rand(rng, (1, 64, 4, 64), torch.bfloat16, cuda)
                .requires_grad_() for _ in range(3))
-    before = (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches)
+    before = _bwd_launches()
     out, lse = tat.flash_attention_chunk(q, k, v, 0, 0)
     (out.float().square().sum() + lse.sum()).backward()
-    assert (tat.FLASH_BWD_DQ.launches, tat.FLASH_BWD_DKV.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert _bwd_launches() == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
 
@@ -330,8 +339,9 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     params = toptim.tree_map(lambda t: t.to(cuda), cpu_state["params"])
     card_state = {"params": params,
                   "opt_state": on_card.optimizer.init(params), "step": 0}
-    kernels = (tat.FLASH_FWD, tat.FLASH_BWD_DQ, tat.FLASH_BWD_DKV)
-    before = [k.launches for k in kernels]
+    kernels = (tat.FLASH_FWD_KERNELS, (tat.FLASH_BWD_DQ,),
+               tat.FLASH_BWD_DKV_KERNELS)
+    before = [_launches(k) for k in kernels]
     rng = np.random.default_rng(0)
     for _ in range(2):
         batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 65))}
@@ -340,7 +350,7 @@ def test_train_step_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(gm["loss"].item(), cm["loss"].item(),
                                    rtol=1e-5)
     L = cfg.num_layers  # forward + remat recompute, then the backward
-    assert [k.launches - b for k, b in zip(kernels, before)] == [
+    assert [_launches(k) - b for k, b in zip(kernels, before)] == [
         4 * L, 2 * L, 2 * L]
     for a, b in zip(toptim.tree_leaves(card_state["params"]),
                     toptim.tree_leaves(cpu_state["params"])):
@@ -371,3 +381,155 @@ def test_fused_ce_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(n1.numpy(), n0.numpy(), rtol=1e-5)
     for a, b in ((dx1, dx0), (dw1, dw0)):
         assert (a - b).abs().max() <= 2 ** -8 * b.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The Hopper kernels (TMA-fed wgmma): csrc/flash_fwd_sm90.cu and
+# csrc/flash_bwd_sm90.cu, bf16 with head dim 64 or 128.
+# ---------------------------------------------------------------------------
+
+_build = importlib.import_module(f"{PORT}.ops._build")
+WGMMA_TILE_TEST = _build.Kernel(
+    "flash_fwd_sm90", "wgmma_tile_test",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("mn_major", [False, True])
+def test_wgmma_tile_product(cuda, n, mn_major):
+    """One 64 x n x 64 product through the kernels' TMA loads, swizzled
+    descriptors and wgmma: B K-major from shared memory (as K in Q K^T)
+    or MN-major with the transpose bit and A from registers (as V in
+    P V).  The products of bf16 values are exact in fp32; only the
+    summation order differs from torch.matmul's."""
+    rng = np.random.default_rng(n + mn_major)
+    a = _rand(rng, (64, 64), torch.bfloat16, cuda)
+    b = _rand(rng, (64, n) if mn_major else (n, 64), torch.bfloat16, cuda)
+    c = torch.empty((64, n), dtype=torch.float32, device=cuda)
+    WGMMA_TILE_TEST.launch(cuda, a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
+                           int(mn_major))
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float() if mn_major else b.float().t())
+    assert (c - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+SM90_CASES = {
+    # name: (b, sq, sk, h, hk, q_off, kv_off, causal); d = 64 and 128.
+    # Lengths off the 64/128-row tiles, where TMA fills the edge with zeros.
+    "len1": (2, 1, 1, 4, 4, 0, 0, True),
+    "len63": (2, 63, 63, 4, 2, 0, 0, True),
+    "len65_end_aligned": (1, 65, 129, 4, 4, 64, 0, True),
+    "len129_noncausal": (1, 129, 65, 2, 2, 0, 0, False),
+    "len1000_gqa2": (1, 1000, 1000, 2, 1, 0, 0, True),
+    "noncausal_1000x129": (2, 1000, 129, 4, 4, 0, 0, False),
+    # sq < sk with offsets.
+    "offsets": (1, 200, 300, 4, 4, 500, 370, True),
+    "gqa_32_8": (1, 256, 256, 32, 8, 0, 0, True),
+    # Rows 0..99 see no key: out 0, lse -1e30, zero gradient.
+    "masked_rows": (1, 160, 96, 4, 2, 100, 200, True),
+    # No row sees a key: blocks write the sentinels and load nothing.
+    "future": (1, 64, 128, 2, 2, 0, 500, True),
+    "no_keys": (1, 33, 0, 2, 2, 0, 0, True),
+    # 32 key tiles: the two-stage ring wraps 16 times.
+    "long_4096": (1, 4096, 4096, 2, 2, 0, 0, True),
+    # 512 forward blocks, 512 dk/dv blocks: several waves on 132 SMs.
+    "many_blocks": (4, 512, 512, 32, 32, 0, 0, True),
+}
+
+
+def _sm90_inputs(case, d, device):
+    b, sq, sk, h, hk, q_off, kv_off, causal = SM90_CASES[case]
+    rng = np.random.default_rng(sq * 31 + sk + d)
+    q = _rand(rng, (b, sq, h, d), torch.bfloat16, device)
+    k = _rand(rng, (b, sk, hk, d), torch.bfloat16, device)
+    v = _rand(rng, (b, sk, hk, d), torch.bfloat16, device)
+    return q, k, v, q_off, kv_off, causal
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_forward_matches_plain(cuda, case, d):
+    q, k, v, q_off, kv_off, causal = _sm90_inputs(case, d, cuda)
+    b, sq, h = q.shape[:3]
+    sk = k.shape[1]
+    before = (tat.FLASH_FWD_SM90.launches, tat.FLASH_FWD.launches)
+    out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal)
+    torch.cuda.synchronize()
+    assert (tat.FLASH_FWD_SM90.launches, tat.FLASH_FWD.launches) == (
+        before[0] + 1, before[1])
+    if sk:
+        o_ref, l_ref = tat.flash_attention_chunk_plain(q, k, v, q_off,
+                                                       kv_off, causal)
+    else:  # no keys: every row gets the sentinels (the plain version
+        # cannot reduce an empty row)
+        o_ref = torch.zeros_like(q)
+        l_ref = torch.full((b * h, sq), tat._NEG_INF, device=cuda)
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    masked = l_ref <= tat._NEG_INF / 2
+    assert torch.equal(lse <= tat._NEG_INF / 2, masked)
+    assert torch.all(lse[masked] == tat._NEG_INF)
+    rows = masked.reshape(b, h, sq).any(dim=1)
+    assert torch.all(out[rows] == 0)
+    err = (out.float() - o_ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], err
+    if (~masked).any():
+        lerr = (lse[~masked] - l_ref[~masked]).abs().max().item()
+        assert lerr <= 1e-4 * math.log(sk + 1) + TOL[torch.bfloat16], lerr
+    if case in ("future", "no_keys"):
+        assert bool(masked.all())
+    if case == "masked_rows":
+        assert bool(rows.any())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_dkv_matches_plain(cuda, case, d):
+    """dq (flash_bwd.cu), dk and dv (the Hopper kernel) against the plain
+    backward with a nonzero lse cotangent; tolerance as
+    test_flash_bwd_matches_plain's bf16 (1e-2 of the largest plain
+    gradient)."""
+    q, k, v, q_off, kv_off, causal = _sm90_inputs(case, d, cuda)
+    b, sq, h = q.shape[:3]
+    sk = k.shape[1]
+    rng = np.random.default_rng(d)
+    dout = _rand(rng, q.shape, torch.bfloat16, cuda)
+    dlse = _rand(rng, (b * h, sq), torch.float32, cuda)
+    out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal)
+    scale = 1.0 / math.sqrt(d)
+    before = (tat.FLASH_BWD_DKV_SM90.launches, tat.FLASH_BWD_DKV.launches)
+    got = tat._flash_chunk_bwd_cuda(q, k, v, out, lse, dout, dlse, q_off,
+                                    kv_off, causal, scale)
+    torch.cuda.synchronize()
+    assert (tat.FLASH_BWD_DKV_SM90.launches, tat.FLASH_BWD_DKV.launches) == (
+        before[0] + (sk > 0), before[1])
+    want = tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
+                                               q_off, kv_off, causal, scale)
+    dead = (lse <= tat._NEG_INF / 2).reshape(b, h, sq).all(1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and not torch.isnan(g).any(), name
+        if not g.numel():  # no keys: dk and dv are empty
+            continue
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1e-2 * max(w.float().abs().max().item(), 1.0), (name,
+                                                                      err)
+    assert torch.all(got[0][dead] == 0)
+    if case == "future":
+        assert all(torch.all(g == 0) for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_main_path_shape_takes_the_hopper_kernels(cuda, dtype):
+    """A forward and backward at d = 128 launch the Hopper forward and
+    dk/dv kernels in bf16 and the older kernels in fp32, never both."""
+    rng = np.random.default_rng(13)
+    q, k, v = (_rand(rng, (2, 96, 4, 128), dtype, cuda).requires_grad_()
+               for _ in range(3))
+    kernels = (tat.FLASH_FWD_SM90, tat.FLASH_FWD, tat.FLASH_BWD_DKV_SM90,
+               tat.FLASH_BWD_DKV, tat.FLASH_BWD_DQ)
+    before = [kn.launches for kn in kernels]
+    out, lse = tat.flash_attention_chunk(q, k, v, 0, 0)
+    (out.float().square().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    got = [kn.launches - b for kn, b in zip(kernels, before)]
+    sm90 = dtype == torch.bfloat16
+    assert got == [int(sm90), int(not sm90), int(sm90), int(not sm90), 1]
