@@ -7,9 +7,9 @@ Phases, each of which raises (exit code != 0) if it fails:
   1. the card: name and power limit (nvidia-smi) and torch's device name;
   2. build every CUDA kernel of ray_tpu_torch/csrc/ with nvcc, in
      parallel, and print each kernel's registers and spills; the Hopper
-     kernels (flash_fwd_sm90, flash_bwd_dkv_sm90) must not spill, and
-     their code (cuobjdump -sass) must hold wgmma (HGMMA) and TMA loads
-     (UTMALDG);
+     kernels (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90) must
+     not spill, and their code (cuobjdump -sass) must hold wgmma (HGMMA)
+     and TMA loads (UTMALDG);
   3. hold each kernel against its plain PyTorch version, in bf16 and
      fp32, at Llama-2-7B shapes (H = KVH = 32, D = 128, page 128) and at
      a GQA shape (H = 16, KVH = 4): ragged contexts with a zero row,
@@ -23,7 +23,8 @@ Phases, each of which raises (exit code != 0) if it fails:
      busiest kernels over an admission step and a few decode steps
      (torch.profiler), and each kernel's time at the
      main path's shapes beside its bound, its plain version's time and
-     one PyTorch call computing the same function where one exists;
+     one PyTorch call computing the same function where one exists; the
+     card's per-launch floor (a one-element add_) beside the row write;
   6. the kernel path against the plain path, teacher-forced: bf16 at
      full depth (prefill and decode logits) and fp32 with 2 layers
      (greedy tokens identical for 16 steps);
@@ -31,24 +32,25 @@ Phases, each of which raises (exit code != 0) if it fails:
      in bf16 and fp32, at the training shape (b = 8, H = KVH = 14,
      D = 128, s = 2048, causal; the forward there too), a GQA shape,
      sq < sk, a non-causal chunk and an offset chunk with fully masked
-     rows and a nonzero lse cotangent (bf16 dk/dv through both the
-     Hopper and the PR 2 kernel); then the Hopper forward and dk/dv at
-     the serving prefill shape and at edge cases (lengths off the tiles,
-     offsets, GQA 32 / 8, masked rows, no keys, s = 4096);
+     rows and a nonzero lse cotangent (bf16 dq and dk/dv through both
+     the Hopper and the older kernels); then the Hopper forward, dq and
+     dk/dv at the serving prefill shape and at edge cases (lengths off
+     the tiles, offsets, GQA 32 / 8, masked rows, no keys, s = 4096), at
+     head dims 128 and 64, the older dq beside the Hopper one;
   8. the training path: ShardedTrainStep on the 0.9B headline config of
      ray_tpu_torch/bench.py (16 layers, hidden 1792, 14 heads, full
      remat, fused CE, AdamW with bf16 moments) at b = 8, s = 2048 with
      random weights from seed 0: a warm-up step, 6 timed steps, tokens/s,
      train_mfu, peak memory, the card's busy share over a step, and the
      flash kernels' launches per step read around the run (32 Hopper
-     forwards, 16 dq, 16 Hopper dk/dv, none of the PR 2 variants);
+     forwards, 16 Hopper dq, 16 Hopper dk/dv, none of the older variants);
   9. the training path with its flash kernels against the plain path on
      the card: loss and every gradient at full width with 2 layers, bf16
      and fp32;
  10. the training kernels' times at the training shape beside their
      bounds, achieved TFLOP/s and PR 2's times, the plain backward's time
-     and one PyTorch backward of the same attention; the PR 2 forward and
-     dk/dv kernels are timed beside the Hopper ones.
+     and one PyTorch backward of the same attention; the older forward,
+     dq and dk/dv kernels are timed beside the Hopper ones.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -114,11 +116,15 @@ KERNELS = {
         kernel=tat.FLASH_BWD_DKV, source="ray_tpu_torch/csrc/flash_bwd.cu",
         replaces="ray_tpu/ops/attention.py:267"),
     # The Hopper kernels that take over bf16 head dims 64 and 128 from the
-    # two rows above (flash_variant); those rows keep fp32 and other dims.
+    # three rows above (flash_variant); those keep fp32 and other dims.
     "flash_fwd_sm90": dict(
         kernel=tat.FLASH_FWD_SM90,
         source="ray_tpu_torch/csrc/flash_fwd_sm90.cu",
         replaces="ray_tpu/ops/attention.py:92"),
+    "flash_bwd_dq_sm90": dict(
+        kernel=tat.FLASH_BWD_DQ_SM90,
+        source="ray_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+        replaces="ray_tpu/ops/attention.py:223"),
     "flash_bwd_dkv_sm90": dict(
         kernel=tat.FLASH_BWD_DKV_SM90,
         source="ray_tpu_torch/csrc/flash_bwd_sm90.cu",
@@ -127,9 +133,10 @@ KERNELS = {
 # The kernels each main path runs (flash_fwd_sm90 runs on both), and the
 # older variants that must not run there (both paths are bf16, d = 128).
 SERVE_KERNELS = ("paged_decode_attention", "row_write", "flash_fwd_sm90")
-TRAIN_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq", "flash_bwd_dkv_sm90")
-REPLACED = ("flash_fwd", "flash_bwd_dkv")
+TRAIN_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+REPLACED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SM90_KERNELS = {"flash_fwd_sm90": "flash_fwd_sm90_kernel",
+                "flash_bwd_dq_sm90": "flash_bwd_dq_sm90_kernel",
                 "flash_bwd_sm90": "flash_bwd_dkv_sm90_kernel"}
 # The PR 2 kernels' device ms at the timed shapes (PERF.md, NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's times of both variants.
@@ -688,6 +695,14 @@ def phase_timings(dev, eng, prompts, max_new, smi):
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{plain_ms:.4f} ms (eager {plain_eager:.4f}), library "
               f"{lib_text}")
+    # The card's per-launch floor: the least device time of any kernel,
+    # timed by the same graph replay (a launch that does almost nothing).
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_eager = time_ms(lambda: one.add_(1.0), 200)
+    print(f"[time] launch floor [one-element in-place add_] on {smi}: "
+          f"device {floor_ms:.4f} ms per launch (eager, host included: "
+          f"{floor_eager:.4f}); row_write {out['row_write']['ms']:.4f} ms is "
+          f"{out['row_write']['ms'] / floor_ms:.2f}x the floor")
     return out
 
 
@@ -706,6 +721,25 @@ BWD_CASES = [
 ]
 
 
+def check_bwd(kname, tag, got, want, dtype=torch.bfloat16):
+    """Gradients of one backward kernel against the plain version's, to
+    BWD_REL_TOL of the largest plain value; no NaN.  Returns the largest
+    error per gradient (0 for an empty one: no keys, no dk/dv)."""
+    errs = []
+    for g, w in zip(got, want):
+        if not g.numel():
+            errs.append(0.0)
+            continue
+        check(not torch.isnan(g).any().item(), f"{kname} {tag}: NaN")
+        err = (g.float() - w.float()).abs().max().item()
+        ref = max(w.float().abs().max().item(), 1.0)
+        check(err <= BWD_REL_TOL[dtype] * ref,
+              f"{kname} {tag}: disagrees with the plain backward ({err} vs "
+              f"max {ref})")
+        errs.append(err)
+    return errs
+
+
 def phase_kernels_bwd(dev):
     """dq and dk/dv against flash_attention_chunk_bwd_plain on the same
     (out, lse) and cotangents (do and a nonzero dlse), and at the training
@@ -713,8 +747,8 @@ def phase_kernels_bwd(dev):
     the largest bf16 error of each kernel at the training shape."""
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = {k: 0.0 for k in ("flash_bwd_dq", "flash_bwd_dkv",
-                              "flash_bwd_dkv_sm90", "flash_fwd",
-                              "flash_fwd_sm90")}
+                              "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+                              "flash_fwd", "flash_fwd_sm90")}
     D = 128
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, sq, sk, H, KVH, q_off, kv_off, causal in BWD_CASES:
@@ -740,52 +774,44 @@ def phase_kernels_bwd(dev):
                     worst[kname] = max(worst[kname], err_f)
             want = tat.flash_attention_chunk_bwd_plain(
                 q, k, v, out, lse, do, dlse, q_off, kv_off, causal, scale)
-            check(not any(torch.isnan(g).any().item() for g in got),
-                  f"{tag}: NaN in a gradient")
+            errs = check_bwd("flash_bwd", tag, got, want, dtype)
             dead = (lse <= tat._NEG_INF / 2).reshape(b, H, sq).all(1)
             check(torch.all(got[0][dead] == 0), f"{tag}: masked rows' dq")
             if name == "masked_rows":
                 check(bool(dead.any()), f"{tag}: no fully masked row")
-            errs = []
-            for g, w in zip(got, want):
-                err = (g.float() - w.float()).abs().max().item()
-                ref = max(w.float().abs().max().item(), 1.0)
-                errs.append(err)
-                check(err <= BWD_REL_TOL[dtype] * ref,
-                      f"{tag}: backward kernel disagrees ({err} vs max "
-                      f"{ref})")
             print(f"[kernel] flash_bwd {tag}: max_abs_err dq {errs[0]:.3e} "
                   f"dk {errs[1]:.3e} dv {errs[2]:.3e} (tolerance "
                   f"{BWD_REL_TOL[dtype]:g} x max |plain|, max |plain dq| "
                   f"{want[0].float().abs().max().item():.3e}); fully "
                   f"masked rows {int(dead.sum())}; no NaN")
             if dtype == torch.bfloat16:
-                # The PR 2 dk/dv kernel, forced, on the same inputs.
+                # The older dq and dk/dv kernels, forced, on the same inputs.
                 corr = tat._bwd_corr(out, do, dlse, b, H, sq)
-                old = tat.flash_bwd_dkv(q, k, v, do, lse, corr, q_off,
-                                        kv_off, causal, scale, sm90=False)
-                old_errs = [(g.float() - w.float()).abs().max().item()
-                            for g, w in zip(old, want[1:])]
-                print(f"[kernel] flash_bwd_dkv (PR 2 kernel) {tag}: "
-                      f"max_abs_err dk {old_errs[0]:.3e} dv "
-                      f"{old_errs[1]:.3e}")
-                for err, w in zip(old_errs, want[1:]):
-                    check(err <= BWD_REL_TOL[dtype] * max(
-                        w.float().abs().max().item(), 1.0),
-                        f"{tag}: PR 2 dk/dv kernel disagrees")
+                old = (tat.flash_bwd_dq(q, k, v, do, lse, corr, q_off,
+                                        kv_off, causal, scale, sm90=False),
+                       *tat.flash_bwd_dkv(q, k, v, do, lse, corr, q_off,
+                                          kv_off, causal, scale,
+                                          sm90=False))
+                old_errs = check_bwd("flash_bwd (older kernels)", tag, old,
+                                     want)
+                print(f"[kernel] flash_bwd_dq, flash_bwd_dkv (older kernels) "
+                      f"{tag}: max_abs_err dq {old_errs[0]:.3e} dk "
+                      f"{old_errs[1]:.3e} dv {old_errs[2]:.3e}")
                 if name == "train":
-                    worst["flash_bwd_dkv"] = max(old_errs)
+                    worst["flash_bwd_dq"] = old_errs[0]
+                    worst["flash_bwd_dkv"] = max(old_errs[1:])
                 del old, corr
             if name == "train" and dtype == torch.bfloat16:
-                worst["flash_bwd_dq"] = errs[0]
+                worst["flash_bwd_dq_sm90"] = errs[0]
                 worst["flash_bwd_dkv_sm90"] = max(errs[1:])
             del q, k, v, do, out, lse, got, want
     torch.cuda.empty_cache()
     return worst
 
 
-# The Hopper kernels' edge cases, bf16, D = 128: (name, b, sq, sk, H, KVH,
-# q_off, kv_off, causal).  "prefill" is the serving path's timed shape.
+# The Hopper kernels' edge cases, bf16, D = 128 and 64: (name, b, sq, sk,
+# H, KVH, q_off, kv_off, causal).  "prefill" is the serving path's timed
+# shape.
 SM90_CASES = [
     ("prefill", 4, 1024, 1024, 32, 32, 0, 0, True),
     ("len1", 2, 1, 1, 32, 32, 0, 0, True),
@@ -796,56 +822,68 @@ SM90_CASES = [
     ("offsets", 1, 200, 300, 32, 32, 500, 370, True),
     ("gqa_32_8", 1, 256, 256, 32, 8, 0, 0, True),
     ("masked_rows", 1, 160, 96, 32, 8, 100, 200, True),
+    ("future", 1, 64, 128, 32, 32, 0, 500, True),
     ("no_keys", 1, 33, 0, 32, 32, 0, 0, True),
     ("long_4096", 1, 4096, 4096, 4, 4, 0, 0, True),
 ]
 
 
 def phase_kernels_sm90(dev):
-    """The Hopper forward and dk/dv kernels against the plain versions at
-    the serving path's prefill shape and at edges TMA and the ring must
-    get right: lengths off the tiles (zero fill), sq < sk with offsets,
-    GQA 32 / 8, fully masked rows, no keys, a ring that wraps 16 times.
-    Returns the largest error of each at the prefill shape."""
+    """The Hopper forward, dq and dk/dv kernels against the plain versions
+    at the serving path's prefill shape and at edges TMA and the rings
+    must get right: lengths off the tiles (zero fill), sq < sk with
+    offsets, GQA 32 / 8, fully masked rows, a chunk from the future, no
+    keys, rings that wrap many times; at head dims 128 and 64.  The older
+    dq (flash_bwd.cu) runs beside the Hopper one on the same inputs.
+    Returns the largest error of each Hopper kernel at the prefill
+    shape."""
     gen = torch.Generator(device=dev).manual_seed(9)
-    worst = {"flash_fwd_sm90": 0.0, "flash_bwd_dkv_sm90": 0.0}
-    D, bf = 128, torch.bfloat16
-    scale = 1.0 / math.sqrt(D)
-    for name, b, sq, sk, H, KVH, q_off, kv_off, causal in SM90_CASES:
-        tag = (f"{name} b={b} sq={sq} sk={sk} H={H} KVH={KVH} q_off={q_off} "
-               f"kv_off={kv_off} causal={causal}")
-        q = rand(gen, (b, sq, H, D), bf, dev)
-        k = rand(gen, (b, sk, KVH, D), bf, dev)
-        v = rand(gen, (b, sk, KVH, D), bf, dev)
-        do = rand(gen, (b, sq, H, D), bf, dev)
-        dlse = torch.randn((b * H, sq), generator=gen, device=dev)
-        err_f = check_flash_fwd("flash_fwd_sm90", tag, q, k, v, q_off,
-                                kv_off, causal, True)
-        out, lse = tat._flash_chunk_cuda(q, k, v, q_off, kv_off, causal,
-                                         scale, sm90=True)
-        corr = tat._bwd_corr(out, do, dlse, b, H, sq)
-        got = tat.flash_bwd_dkv(q, k, v, do, lse, corr, q_off, kv_off,
-                                causal, scale, sm90=True)
-        torch.cuda.synchronize()
-        want = tat.flash_attention_chunk_bwd_plain(
-            q, k, v, out, lse, do, dlse, q_off, kv_off, causal, scale)[1:]
-        errs = []
-        for g, w in zip(got, want):
-            if not g.numel():  # no keys: nothing to compare
-                errs.append(0.0)
-                continue
-            check(not torch.isnan(g).any().item(), f"{tag}: NaN in dk/dv")
-            err = (g.float() - w.float()).abs().max().item()
-            ref = max(w.float().abs().max().item(), 1.0)
-            check(err <= BWD_REL_TOL[bf] * ref,
-                  f"{tag}: Hopper dk/dv disagrees ({err} vs max {ref})")
-            errs.append(err)
-        print(f"[kernel] flash_bwd_dkv_sm90 {tag}: max_abs_err dk "
-              f"{errs[0]:.3e} dv {errs[1]:.3e} (tolerance "
-              f"{BWD_REL_TOL[bf]:g} x max |plain|); no NaN")
-        if name == "prefill":
-            worst = {"flash_fwd_sm90": err_f, "flash_bwd_dkv_sm90": max(errs)}
-        del q, k, v, do, out, lse, corr, got, want
+    worst = {}
+    bf = torch.bfloat16
+    for D in (128, 64):
+        scale = 1.0 / math.sqrt(D)
+        for name, b, sq, sk, H, KVH, q_off, kv_off, causal in SM90_CASES:
+            tag = (f"{name} D={D} b={b} sq={sq} sk={sk} H={H} KVH={KVH} "
+                   f"q_off={q_off} kv_off={kv_off} causal={causal}")
+            q = rand(gen, (b, sq, H, D), bf, dev)
+            k = rand(gen, (b, sk, KVH, D), bf, dev)
+            v = rand(gen, (b, sk, KVH, D), bf, dev)
+            do = rand(gen, (b, sq, H, D), bf, dev)
+            dlse = torch.randn((b * H, sq), generator=gen, device=dev)
+            err_f = check_flash_fwd("flash_fwd_sm90", tag, q, k, v, q_off,
+                                    kv_off, causal, True)
+            out, lse = tat._flash_chunk_cuda(q, k, v, q_off, kv_off, causal,
+                                             scale, sm90=True)
+            corr = tat._bwd_corr(out, do, dlse, b, H, sq)
+            dq = tat.flash_bwd_dq(q, k, v, do, lse, corr, q_off, kv_off,
+                                  causal, scale, sm90=True)
+            dq_old = tat.flash_bwd_dq(q, k, v, do, lse, corr, q_off, kv_off,
+                                      causal, scale, sm90=False)
+            dkv = tat.flash_bwd_dkv(q, k, v, do, lse, corr, q_off, kv_off,
+                                    causal, scale, sm90=True)
+            torch.cuda.synchronize()
+            want = tat.flash_attention_chunk_bwd_plain(
+                q, k, v, out, lse, do, dlse, q_off, kv_off, causal, scale)
+            (err_dq,) = check_bwd("flash_bwd_dq_sm90", tag, [dq], want[:1])
+            (err_old,) = check_bwd("flash_bwd_dq", tag, [dq_old], want[:1])
+            errs = check_bwd("flash_bwd_dkv_sm90", tag, dkv, want[1:])
+            dead = (lse <= tat._NEG_INF / 2).reshape(b, H, sq).permute(
+                0, 2, 1)
+            check(torch.all(dq[dead] == 0).item(),
+                  f"{tag}: dq of rows that see no key is not 0")
+            if name in ("masked_rows", "future", "no_keys"):
+                check(bool(dead.any()), f"{tag}: no fully masked row")
+            print(f"[kernel] flash_bwd_dq_sm90 / flash_bwd_dkv_sm90 {tag}: "
+                  f"max_abs_err dq {err_dq:.3e} (older dq {err_old:.3e}) dk "
+                  f"{errs[0]:.3e} dv {errs[1]:.3e} (tolerance "
+                  f"{BWD_REL_TOL[bf]:g} x max |plain|, max |plain dq| "
+                  f"{want[0].float().abs().max().item():.3e}); fully masked "
+                  f"rows {int(dead.sum())}, their dq exactly 0; no NaN")
+            if name == "prefill" and D == 128:
+                worst = {"flash_fwd_sm90": err_f,
+                         "flash_bwd_dq_sm90": err_dq,
+                         "flash_bwd_dkv_sm90": max(errs)}
+            del q, k, v, do, out, lse, corr, dq, dq_old, dkv, want
     torch.cuda.empty_cache()
     return worst
 
@@ -907,12 +945,14 @@ def phase_train(dev, smi):
     L = cfg.num_layers
     per_step = {n: c / steps for n, c in launches.items()}
     print(f"[train] launches per step {json.dumps(per_step)} (expected "
-          f"flash_fwd_sm90 {2 * L}: forward + remat recompute; dq and "
-          f"dk/dv {L} each; the PR 2 forward and dk/dv kernels 0)")
+          f"flash_fwd_sm90 {2 * L}: forward + remat recompute; Hopper dq "
+          f"and dk/dv {L} each; the older forward, dq and dk/dv kernels "
+          f"0)")
     check(launches == {"flash_fwd_sm90": 2 * L * steps,
-                       "flash_bwd_dq": L * steps,
+                       "flash_bwd_dq_sm90": L * steps,
                        "flash_bwd_dkv_sm90": L * steps,
-                       "flash_fwd": 0, "flash_bwd_dkv": 0},
+                       "flash_fwd": 0, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
           "training kernel launches differ from the expected count")
     print(f"[train] on {smi}: {dt / steps * 1e3:.1f} ms per step, "
           f"{tok_s:.0f} tokens/s, train_mfu {mfu:.4f} (model FLOPs "
@@ -1044,9 +1084,14 @@ def phase_timings_train(dev, smi):
             fwd, kernel=lambda: tat._flash_chunk_cuda(
                 q, k, v, 0, 0, True, scale, sm90=False),
             pr2="flash_fwd (training shape)"),
+        "flash_bwd_dq_sm90": dict(
+            bwd, kernel=lambda: tat.flash_bwd_dq(
+                q, k, v, do, lse, corr, 0, 0, True, scale, sm90=True),
+            flops=6 * b * H * D * pairs, bytes=5 * elem + 2 * rows,
+            pr2="flash_bwd_dq"),
         "flash_bwd_dq": dict(
-            bwd, kernel=lambda: tat.flash_bwd_dq(q, k, v, do, lse, corr, 0, 0,
-                                                 True, scale),
+            bwd, kernel=lambda: tat.flash_bwd_dq(
+                q, k, v, do, lse, corr, 0, 0, True, scale, sm90=False),
             flops=6 * b * H * D * pairs, bytes=5 * elem + 2 * rows,
             pr2="flash_bwd_dq"),
         "flash_bwd_dkv_sm90": dict(
@@ -1083,6 +1128,13 @@ def phase_timings_train(dev, smi):
               f"{c['flops'] / 1e9:.1f} GFLOP, {c['bytes'] / 1e6:.1f} MB), "
               f"plain {plain_ms:.4f} ms ({what}), library {lib_ms:.4f} ms "
               f"(scaled_dot_product_attention {what})")
+    for label, dq_name, dkv_name in (
+            ("Hopper", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+            ("older", "flash_bwd_dq", "flash_bwd_dkv")):
+        both = out_rows[dq_name]["ms"] + out_rows[dkv_name]["ms"]
+        print(f"[time] backward dq + dk/dv, {label} kernels [{shape}] on "
+              f"{smi}: {both:.4f} ms, SDPA backward "
+              f"{yardsticks[bwd['what']][1]:.4f} ms")
     return out_rows
 
 

@@ -2,9 +2,9 @@
 // summed over each GQA group, from the saved logsumexp.
 //
 // Replaces: ray_tpu/ops/attention.py _bwd_dq_kernel and _bwd_dkv_kernel,
-// the Pallas TPU kernels driven by _flash_bwd.  bf16 dk/dv with d = 64 or
-// 128 on 16-byte-aligned tensors (the training path) runs
-// flash_bwd_sm90.cu instead, as ops/attention.py flash_variant decides.
+// the Pallas TPU kernels driven by _flash_bwd.  bf16 with d = 64 or 128 on
+// 16-byte-aligned tensors (the training path) runs flash_bwd_dq_sm90.cu
+// and flash_bwd_sm90.cu instead, as ops/attention.py flash_variant decides.
 //
 // Both recompute p = exp(q k^T * scale - lse) tile by tile, so the s x s
 // matrix never reaches device memory, and form

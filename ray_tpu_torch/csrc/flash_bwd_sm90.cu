@@ -6,7 +6,7 @@
 // Replaces: ray_tpu/ops/attention.py _bwd_dkv_kernel, the Pallas TPU
 // kernel driven by _flash_bwd, for the training path's shapes (bf16,
 // d = 128).  fp32, other head dims and misaligned tensors stay on
-// flash_bwd.cu; dq stays on flash_bwd.cu's flash_bwd_dq.
+// flash_bwd.cu; dq has its own Hopper kernel, flash_bwd_dq_sm90.cu.
 //
 // What bounds it on an H100: operations (training shape b = 8, s = 2048,
 // 14 heads, d = 128, causal: 4 products, 240 GFLOP against 352 MB).  The

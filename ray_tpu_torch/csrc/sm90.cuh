@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): TMA tile loads completing on
-// mbarriers, shared-memory matrix descriptors for 128-byte-swizzled tiles,
-// the wgmma products the kernels use, and the host-side tensor maps.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_bwd_dq_sm90.cu): TMA tile
+// loads completing on mbarriers, shared-memory matrix descriptors for
+// 128-byte-swizzled tiles, the wgmma products the kernels use, and the
+// host-side tensor maps.
 //
 // Tile layout.  Every operand tile is TMA-loaded from a [b, s, heads, d]
 // bf16 tensor as boxes of `rows` positions x 64 head-dim columns (128
@@ -17,8 +18,8 @@
 //    SBO = 1024 bytes between 8-row groups; a 16-column k-step inside
 //    the box advances the start address by 32 bytes.
 //  - MN-major (the output dim contiguous, the transpose bit set: V of
-//    P V, Q and dO of dS^T Q and P^T dO): SBO = 1024 bytes between
-//    8-row (8-position) groups along the reduction, LBO = the byte
+//    P V, Q and dO of dS^T Q and P^T dO, K of dS K): SBO = 1024 bytes
+//    between 8-row (8-position) groups along the reduction, LBO = the byte
 //    distance between the 64-column boxes along N; a 16-position k-step
 //    advances the start address by 16 rows, 2048 bytes.
 //

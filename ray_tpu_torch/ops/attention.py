@@ -16,18 +16,20 @@ Port of ray_tpu/ops/attention.py.
   - `attention_reference`: plain attention, the numerical ground truth.
   - `flash_variant`: which kernel a CUDA call runs, from dtype, head dim
     and alignment: bf16 with head dim 64 or 128 on 16-byte-aligned
-    tensors takes the Hopper kernels (TMA-fed wgmma,
-    csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu for dk/dv); every
-    other shape the kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu.
+    tensors takes the Hopper kernels (TMA-fed wgmma: csrc/flash_fwd_sm90.cu,
+    csrc/flash_bwd_dq_sm90.cu for dq, csrc/flash_bwd_sm90.cu for dk/dv);
+    every other shape the kernels of csrc/flash_fwd.cu and
+    csrc/flash_bwd.cu.
 
 Layout: q is [batch, seq, heads, head_dim]; k and v may carry fewer heads
 than q (GQA, heads dividing q's), which the kernel reads without
 expanding.  The gradient (`_FlashChunk`) recomputes p from the saved
-lse in two kernels: dq per query tile (csrc/flash_bwd.cu), and dk/dv per
-key tile summed over the GQA group's query heads (csrc/flash_bwd_sm90.cu
-or csrc/flash_bwd.cu, by `flash_variant`), so the backward never
-materializes the s x s matrix either.  The lse output is differentiable
-(ring attention's merge weights chunks by it).
+lse in two kernels, each picked by `flash_variant`: dq per query tile
+(csrc/flash_bwd_dq_sm90.cu or csrc/flash_bwd.cu), and dk/dv per key tile
+summed over the GQA group's query heads (csrc/flash_bwd_sm90.cu or
+csrc/flash_bwd.cu), so the backward never materializes the s x s matrix
+either.  The lse output is differentiable (ring attention's merge weights
+chunks by it).
 """
 
 from __future__ import annotations
@@ -57,18 +59,21 @@ FLASH_BWD_DKV = Kernel("flash_bwd", "flash_bwd_dkv",
 # The Hopper kernels take bf16 only: no dtype argument.
 FLASH_FWD_SM90 = Kernel("flash_fwd_sm90", "flash_fwd_sm90",
                         [_c_p] * 5 + [_c_int] * 9 + [_c_f])
+FLASH_BWD_DQ_SM90 = Kernel("flash_bwd_dq_sm90", "flash_bwd_dq_sm90",
+                           [_c_p] * 7 + [_c_int] * 9 + [_c_f])
 FLASH_BWD_DKV_SM90 = Kernel("flash_bwd_sm90", "flash_bwd_dkv_sm90",
                             [_c_p] * 8 + [_c_int] * 9 + [_c_f])
-# Every kernel that computes the forward, and every one that computes
-# dk/dv: a run counts a call of the op by the sum of their launches.
+# Every kernel that computes the forward, dq or dk/dv: a run counts a call
+# of the op by the sum of their launches.
 FLASH_FWD_KERNELS = (FLASH_FWD, FLASH_FWD_SM90)
+FLASH_BWD_DQ_KERNELS = (FLASH_BWD_DQ, FLASH_BWD_DQ_SM90)
 FLASH_BWD_DKV_KERNELS = (FLASH_BWD_DKV, FLASH_BWD_DKV_SM90)
 
 SM90_HEAD_DIMS = (64, 128)
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
-    """The kernel a CUDA flash forward or dk/dv call runs: "sm90" (the
+    """The kernel a CUDA flash forward, dq or dk/dv call runs: "sm90" (the
     Hopper wgmma kernels) for bf16 with head dim 64 or 128 on tensors
     that are all 16-byte aligned (TMA's rule); else "mma_sync" (the
     older tensor-core kernels: bf16, head dims of 16..128 in steps of
@@ -249,17 +254,25 @@ def _bwd_args(q, k, v, lse, dout, corr):
 
 
 def flash_bwd_dq(q, k, v, dout, lse, corr, q_off: int, kv_off: int,
-                 causal: bool, sm_scale: float) -> torch.Tensor:
-    """dq through csrc/flash_bwd.cu (CUDA tensors; corr from _bwd_corr)."""
+                 causal: bool, sm_scale: float,
+                 sm90: Optional[bool] = None) -> torch.Tensor:
+    """dq through the kernel `flash_variant` picks (CUDA tensors; corr
+    from _bwd_corr).  `sm90=False` forces csrc/flash_bwd.cu, to time it
+    beside the Hopper kernel."""
     code, q, k, v, dout, lse, corr = _bwd_args(q, k, v, lse, dout, corr)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
+    if sm90 is None:
+        sm90 = flash_variant(q.dtype, d, _aligned(q, k, v, dout, dq)) == "sm90"
     if b and sq:
-        FLASH_BWD_DQ.launch(
-            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), corr.data_ptr(), dq.data_ptr(),
-            b, h, hk, sq, sk, d, q_off, kv_off, int(causal), sm_scale, code)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), corr.data_ptr(), dq.data_ptr(), b, h, hk, sq,
+                sk, d, q_off, kv_off, int(causal), sm_scale)
+        if sm90:
+            FLASH_BWD_DQ_SM90.launch(q.device, *args)
+        else:
+            FLASH_BWD_DQ.launch(q.device, *args, code)
     return dq
 
 

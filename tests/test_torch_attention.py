@@ -251,3 +251,46 @@ def test_flash_chunk_lse_gradient_through_merge_matches_jax():
     for g, wnt, r in zip(got, want, ref):
         np.testing.assert_allclose(g, np.asarray(wnt), **GTOL)
         np.testing.assert_allclose(g, r, **GTOL)
+
+
+# The plain dq (and dk, dv) against the JAX backward kernels called
+# directly (`_flash_bwd`: `_bwd_dq_kernel` and `_bwd_dkv_kernel` in
+# interpret mode) on the same saved (out, lse) and cotangents, a nonzero
+# dlse included.  The reference takes as many K/V heads as query heads, so
+# GQA runs it on heads expanded first and sums its dk/dv over each group.
+# name: (b, sq, sk, h, hk, q_off, kv_off, causal)
+BWD_KERNEL_CASES = {
+    "causal": (1, 128, 128, 2, 2, 0, 0, True),
+    "gqa": (2, 64, 128, 4, 2, 64, 0, True),
+    # Rows 0..43 see no key (lse = -1e30): zero gradient, no NaN.
+    "masked_rows": (1, 128, 128, 2, 1, 256, 300, True),
+    "noncausal_offsets": (1, 64, 128, 2, 2, 10, 500, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_KERNEL_CASES))
+def test_plain_backward_matches_jax_bwd_kernels(case):
+    b, sq, sk, h, hk, q_off, kv_off, causal = BWD_KERNEL_CASES[case]
+    q, k, v = _qkv(sq + 7 * sk + q_off, b, sq, sk, h, 32, hk=hk)
+    dout, dlse = _weights(5, q.shape, (b * h, sq))
+    g = h // hk
+    ke, ve = np.repeat(k, g, axis=2), np.repeat(v, g, axis=2)
+    out, lse = jat.flash_attention_chunk(
+        jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve), q_off, kv_off,
+        causal=causal, block_q=64, block_k=64)
+    offs = jnp.asarray([q_off, kv_off], jnp.int32)
+    want = jat._flash_bwd(jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve),
+                          out, lse, offs, jnp.asarray(dout),
+                          jnp.asarray(dlse), causal, 1.0 / np.sqrt(32), 64,
+                          64)
+    want = [np.asarray(w) for w in want]
+    want[1:] = [w.reshape(b, sk, hk, g, 32).sum(3) for w in want[1:]]
+    got = tat.flash_attention_chunk_bwd_plain(
+        *_t(q, k, v, np.array(out), np.array(lse), dout, dlse), q_off,
+        kv_off, causal)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        assert np.isfinite(gt.numpy()).all(), name
+        np.testing.assert_allclose(gt.numpy(), w, **GTOL, err_msg=name)
+    dead = np.asarray(lse).reshape(b, h, sq) <= -5e29
+    assert dead.any() == (case == "masked_rows")
+    assert np.all(got[0].numpy().transpose(0, 2, 1, 3)[dead] == 0)

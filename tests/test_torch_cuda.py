@@ -60,7 +60,7 @@ def _launches(kernels):
 
 
 def _bwd_launches():
-    return (tat.FLASH_BWD_DQ.launches,
+    return (_launches(tat.FLASH_BWD_DQ_KERNELS),
             _launches(tat.FLASH_BWD_DKV_KERNELS))
 
 
@@ -339,7 +339,7 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     params = toptim.tree_map(lambda t: t.to(cuda), cpu_state["params"])
     card_state = {"params": params,
                   "opt_state": on_card.optimizer.init(params), "step": 0}
-    kernels = (tat.FLASH_FWD_KERNELS, (tat.FLASH_BWD_DQ,),
+    kernels = (tat.FLASH_FWD_KERNELS, tat.FLASH_BWD_DQ_KERNELS,
                tat.FLASH_BWD_DKV_KERNELS)
     before = [_launches(k) for k in kernels]
     rng = np.random.default_rng(0)
@@ -384,8 +384,9 @@ def test_fused_ce_on_cuda_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The Hopper kernels (TMA-fed wgmma): csrc/flash_fwd_sm90.cu and
-# csrc/flash_bwd_sm90.cu, bf16 with head dim 64 or 128.
+# The Hopper kernels (TMA-fed wgmma): csrc/flash_fwd_sm90.cu,
+# csrc/flash_bwd_dq_sm90.cu and csrc/flash_bwd_sm90.cu, bf16 with head dim
+# 64 or 128.
 # ---------------------------------------------------------------------------
 
 _build = importlib.import_module(f"{PORT}.ops._build")
@@ -484,7 +485,7 @@ def test_sm90_forward_matches_plain(cuda, case, d):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", sorted(SM90_CASES))
 def test_sm90_dkv_matches_plain(cuda, case, d):
-    """dq (flash_bwd.cu), dk and dv (the Hopper kernel) against the plain
+    """dq, dk and dv (both through the Hopper kernels) against the plain
     backward with a nonzero lse cotangent; tolerance as
     test_flash_bwd_matches_plain's bf16 (1e-2 of the largest plain
     gradient)."""
@@ -496,12 +497,14 @@ def test_sm90_dkv_matches_plain(cuda, case, d):
     dlse = _rand(rng, (b * h, sq), torch.float32, cuda)
     out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal)
     scale = 1.0 / math.sqrt(d)
-    before = (tat.FLASH_BWD_DKV_SM90.launches, tat.FLASH_BWD_DKV.launches)
+    kernels = (tat.FLASH_BWD_DKV_SM90, tat.FLASH_BWD_DKV,
+               tat.FLASH_BWD_DQ_SM90, tat.FLASH_BWD_DQ)
+    before = [kn.launches for kn in kernels]
     got = tat._flash_chunk_bwd_cuda(q, k, v, out, lse, dout, dlse, q_off,
                                     kv_off, causal, scale)
     torch.cuda.synchronize()
-    assert (tat.FLASH_BWD_DKV_SM90.launches, tat.FLASH_BWD_DKV.launches) == (
-        before[0] + (sk > 0), before[1])
+    assert [kn.launches - b for kn, b in zip(kernels, before)] == [
+        int(sk > 0), 0, 1, 0]
     want = tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
                                                q_off, kv_off, causal, scale)
     dead = (lse <= tat._NEG_INF / 2).reshape(b, h, sq).all(1)
@@ -517,19 +520,56 @@ def test_sm90_dkv_matches_plain(cuda, case, d):
         assert all(torch.all(g == 0) for g in got)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_dq_matches_plain(cuda, case, d):
+    """The Hopper dq alone against the plain backward's dq, with a
+    nonzero lse cotangent, within 1e-2 of the largest plain dq (both round
+    ds to bf16 at the same point; p is not rounded for dq; the fp32 sums,
+    taken in another order, round to bf16 once).  Rows that see no key
+    come out exactly 0; no NaN."""
+    q, k, v, q_off, kv_off, causal = _sm90_inputs(case, d, cuda)
+    b, sq, h = q.shape[:3]
+    rng = np.random.default_rng(d + 1)
+    dout = _rand(rng, q.shape, torch.bfloat16, cuda)
+    dlse = _rand(rng, (b * h, sq), torch.float32, cuda)
+    out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, causal)
+    corr = tat._bwd_corr(out, dout, dlse, b, h, sq)
+    scale = 1.0 / math.sqrt(d)
+    before = (tat.FLASH_BWD_DQ_SM90.launches, tat.FLASH_BWD_DQ.launches)
+    got = tat.flash_bwd_dq(q, k, v, dout, lse, corr, q_off, kv_off, causal,
+                           scale)
+    torch.cuda.synchronize()
+    assert (tat.FLASH_BWD_DQ_SM90.launches, tat.FLASH_BWD_DQ.launches) == (
+        before[0] + 1, before[1])
+    want = tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
+                                               q_off, kv_off, causal,
+                                               scale)[0]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert not torch.isnan(got).any()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+    dead = (lse <= tat._NEG_INF / 2).reshape(b, h, sq).permute(0, 2, 1)
+    assert torch.all(got[dead] == 0)
+    if case in ("future", "no_keys"):
+        assert bool(dead.all()) and torch.all(got == 0)
+    if case == "masked_rows":
+        assert bool(dead.any())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_main_path_shape_takes_the_hopper_kernels(cuda, dtype):
-    """A forward and backward at d = 128 launch the Hopper forward and
+    """A forward and backward at d = 128 launch the Hopper forward, dq and
     dk/dv kernels in bf16 and the older kernels in fp32, never both."""
     rng = np.random.default_rng(13)
     q, k, v = (_rand(rng, (2, 96, 4, 128), dtype, cuda).requires_grad_()
                for _ in range(3))
     kernels = (tat.FLASH_FWD_SM90, tat.FLASH_FWD, tat.FLASH_BWD_DKV_SM90,
-               tat.FLASH_BWD_DKV, tat.FLASH_BWD_DQ)
+               tat.FLASH_BWD_DKV, tat.FLASH_BWD_DQ_SM90, tat.FLASH_BWD_DQ)
     before = [kn.launches for kn in kernels]
     out, lse = tat.flash_attention_chunk(q, k, v, 0, 0)
     (out.float().square().sum() + lse.sum()).backward()
     torch.cuda.synchronize()
     got = [kn.launches - b for kn, b in zip(kernels, before)]
     sm90 = dtype == torch.bfloat16
-    assert got == [int(sm90), int(not sm90), int(sm90), int(not sm90), 1]
+    assert got == [int(sm90), int(not sm90)] * 3

@@ -52,19 +52,47 @@ def test_alignment_of_tensors():
 
 def test_kernel_sets_name_every_variant():
     assert set(tat.FLASH_FWD_KERNELS) == {tat.FLASH_FWD, tat.FLASH_FWD_SM90}
+    assert set(tat.FLASH_BWD_DQ_KERNELS) == {tat.FLASH_BWD_DQ,
+                                             tat.FLASH_BWD_DQ_SM90}
     assert set(tat.FLASH_BWD_DKV_KERNELS) == {tat.FLASH_BWD_DKV,
                                               tat.FLASH_BWD_DKV_SM90}
     sources = set(build.sources())
-    for kernel in tat.FLASH_FWD_KERNELS + tat.FLASH_BWD_DKV_KERNELS:
+    for kernel in (tat.FLASH_FWD_KERNELS + tat.FLASH_BWD_DQ_KERNELS
+                   + tat.FLASH_BWD_DKV_KERNELS):
         assert kernel.source in sources
 
 
 def test_sources_include_their_shared_header():
     names = [os.path.basename(p) for p in build.headers()]
     assert "sm90.cuh" in names
-    for src in ("flash_fwd_sm90", "flash_bwd_sm90"):
+    for src in ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_sm90"):
         text = open(build.source_path(src), encoding="utf-8").read()
         assert '#include "sm90.cuh"' in text
+
+
+@pytest.mark.parametrize("op", ["dq", "dkv"])
+@pytest.mark.parametrize("dtype,head_dim", [
+    (torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 80),
+    (torch.float32, 128)])
+@pytest.mark.parametrize("sm90", [None, False])
+def test_backward_wrappers_route_by_flash_variant(monkeypatch, op, dtype,
+                                                  head_dim, sm90):
+    """flash_bwd_dq and flash_bwd_dkv launch the Hopper kernel exactly
+    where flash_variant says "sm90" (unless sm90=False forces the older
+    one), and nothing else: the launch is recorded, not run."""
+    launched = []
+    monkeypatch.setattr(build.Kernel, "launch",
+                        lambda self, device, *args: launched.append(self))
+    q = torch.zeros(1, 8, 2, head_dim, dtype=dtype)
+    lse = torch.zeros(2, 8)
+    if op == "dq":
+        wrapper, kernels = tat.flash_bwd_dq, tat.FLASH_BWD_DQ_KERNELS
+    else:
+        wrapper, kernels = tat.flash_bwd_dkv, tat.FLASH_BWD_DKV_KERNELS
+    wrapper(q, q, q, q, lse, lse, 0, 0, True, 0.125, sm90=sm90)
+    hopper = sm90 is None and tat.flash_variant(dtype, head_dim,
+                                                True) == "sm90"
+    assert launched == [kernels[1] if hopper else kernels[0]]
 
 
 @pytest.fixture
