@@ -15,19 +15,33 @@ Phases, each of which raises (exit code != 0) if it fails:
      a GQA shape (H = 16, KVH = 4): ragged contexts with a zero row,
      dropped write rows, sq < sk, offsets and a fully masked chunk; bf16
      flash forwards through both the Hopper and the PR 2 kernel;
-  4. the main path: LLMEngine serving 12 greedy requests on
-     Llama-2-7B at full width and depth with random bf16 weights, with
-     every kernel's launch count read around that run (every forward
-     through the Hopper kernel);
+  4. the classic path: LLMEngine serving 12 greedy requests on
+     Llama-2-7B at full width and depth with random bf16 weights, every
+     decode step a CUDA-graph replay, with every kernel's launch count
+     read around that run (every forward through the Hopper kernel);
   5. the engine's prefill and decode rates, the card's busy share and
      busiest kernels over an admission step and a few decode steps
      (torch.profiler), and each kernel's time at the
      main path's shapes beside its bound, its plain version's time and
      one PyTorch call computing the same function where one exists; the
      card's per-launch floor (a one-element add_) beside the row write;
+  5b. the pipelined path (`[pipelined]`): LLMEngine(multi_step=16,
+     pipeline_depth=2, packed_admit=True, page 128, 192 pages, 16 slots)
+     on the same weights, 16 requests of 100-1,000 tokens (two sharing a
+     256-token prefix) and 8 more after the third step, 64-128 new
+     tokens each, with launch counts through replays, graph captures,
+     decode and wave-prefill rates; `[graph]`: one decode_step (B = 8)
+     and one 16-step chunk (B = 16) eager against replay, and the card's
+     busy share of a replayed chunk; at bf16 the share of pipelined
+     streams equal to the classic engine's and a speculative run's
+     drafted / accepted counts (reported, not gated);
   6. the kernel path against the plain path, teacher-forced: bf16 at
      full depth (prefill and decode logits) and fp32 with 2 layers
-     (greedy tokens identical for 16 steps);
+     (greedy tokens identical for 16 steps); at fp32, 2 layers, full
+     width: a replayed 16-step chunk equal to the eager one bit for bit
+     (also bf16), pipelined and speculative streams equal to the
+     classic engine's, and a request exported mid-run from a pipelined
+     engine continuing exactly in another;
   7. the flash backward kernels (dq, dk/dv) against their plain version,
      in bf16 and fp32, at the training shape (b = 8, H = KVH = 14,
      D = 128, s = 2048, causal; the forward there too), a GQA shape,
@@ -74,6 +88,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import bench as tbench
+from ray_tpu_torch.models import decode_graph as tdg
 from ray_tpu_torch.models import decoding as tdec
 from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.transformer import (
@@ -165,6 +180,8 @@ PROFILE_GROUPS = [
     ("reduction", r"reduce_kernel"),
     ("elementwise", r"elementwise|index"),
 ]
+# Packed-wave views [nseg, seg_len] of the pipelined run's waves.
+PACKED_WAVES = ((16, 128), (16, 512), (8, 1024))
 SHAPES = {"llama2_7b": dict(H=32, KVH=32, D=128, page=128),
           "gqa_serve": dict(H=16, KVH=4, D=128, page=128)}
 
@@ -205,6 +222,7 @@ def time_ms(fn, n):
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
+    _build.take_captured()  # timing replays count as no launches
     graph.replay()
     device = _events_ms(graph.replay, n)
 
@@ -342,34 +360,90 @@ def check_flash_fwd(kname, tag, q, k, v, q_off, kv_off, causal, sm90):
     return err_f
 
 
+def check_paged_decode(gen, tag, dtype, dev, s, B, W, ctx_list):
+    """Paged decode at B slots over W-page tables with contexts
+    `ctx_list` (0: an idle slot, whose row must be zero) against the
+    plain version.  Returns (error, q, pages, tables, ctx) for the row
+    write check."""
+    H, KVH, D, page = s["H"], s["KVH"], s["D"], s["page"]
+    P = B * W + 1
+    q = rand(gen, (B, H, D), dtype, dev)
+    kp = rand(gen, (P, page, KVH * D), dtype, dev)
+    vp = rand(gen, (P, page, KVH * D), dtype, dev)
+    tables = torch.randperm(P - 1, generator=gen, device=dev)[
+        :B * W].reshape(B, W).int()
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    got = tpa.paged_attention(q, kp, vp, tables, ctx)
+    torch.cuda.synchronize()
+    want = tpa.paged_attention_plain(q, kp, vp, tables, ctx)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.all(got[ctx == 0] == 0), f"{tag}: ctx 0 row not zero")
+    print(f"[kernel] paged_decode_attention {tag} B={B} W={W}: max_abs_err "
+          f"{err:.3e} (tolerance {TOL[dtype]:g})")
+    check(err <= TOL[dtype], "paged decode disagrees")
+    return err, kp, vp, tables, ctx
+
+
+def check_packed_wave(gen, tag, dtype, dev, s, nseg, seg_len):
+    """The flash forward as a packed wave calls it: causal on the
+    [nseg, seg_len] view, each segment a valid prefix of ragged length
+    followed by pad rows (one row repeated, as a pad token gives), the
+    last segment all pad (an unused one).  Every row against the plain
+    version.  Returns the largest error."""
+    H, KVH, D = s["H"], s["KVH"], s["D"]
+    q = rand(gen, (nseg, seg_len, H, D), dtype, dev)
+    k = rand(gen, (nseg, seg_len, KVH, D), dtype, dev)
+    v = rand(gen, (nseg, seg_len, KVH, D), dtype, dev)
+    valid = torch.randint(seg_len // 2 + 1 if seg_len > 128 else 1,
+                          seg_len + 1, (nseg,), generator=gen, device=dev)
+    valid[-1] = 0
+    valid[0] = seg_len
+    pad = torch.arange(seg_len, device=dev)[None] >= valid[:, None]
+    for t in (q, k, v):
+        t[pad] = t[0, 0].clone()
+    got = tat.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = tat.flash_attention_chunk_plain(q, k, v, 0, 0, True)[0]
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    err_valid = diff[~pad].max().item()
+    kname = ("flash_fwd_sm90" if tat.flash_variant(dtype, D, True) == "sm90"
+             else "flash_fwd")
+    print(f"[kernel] {kname} {tag} packed wave "
+          f"[{nseg}, {seg_len}] valid {valid.tolist()}: max_abs_err "
+          f"{err:.3e}, on valid rows {err_valid:.3e} (tolerance "
+          f"{TOL[dtype]:g})")
+    check(not torch.isnan(got).any().item() and err <= TOL[dtype],
+          "flash forward disagrees on a packed wave")
+    return err
+
+
 def phase_kernels(dev):
-    """Each kernel against its plain version; returns the largest bf16
-    error per kernel at the main path's (Llama-2-7B) shapes (0 for the
-    row write, which must be bit-exact)."""
+    """Each kernel against its plain version, at the classic path's
+    shapes and at those the pipelined path gives it (paged decode at
+    B = 16 over 16-page tables, the flash forward on packed-wave views);
+    returns the largest bf16 error per kernel at the main path's
+    (Llama-2-7B) shapes (0 for the row write, which must be bit-exact)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {k: 0.0 for k in KERNELS}
     for shape_name, s in SHAPES.items():
         H, KVH, D, page = s["H"], s["KVH"], s["D"], s["page"]
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"{shape_name} {str(dtype)[6:]}"
-            # Paged decode: ragged contexts including an empty row.
-            B, W = 8, 8
-            P = B * W + 1
-            q = rand(gen, (B, H, D), dtype, dev)
-            kp = rand(gen, (P, page, KVH * D), dtype, dev)
-            vp = rand(gen, (P, page, KVH * D), dtype, dev)
-            tables = torch.randperm(P - 1, generator=gen, device=dev)[
-                :B * W].reshape(B, W).int()
-            ctx = torch.tensor([0, 1, 127, 128, 129, 500, 777, 1024],
-                               dtype=torch.int32, device=dev)
-            got = tpa.paged_attention(q, kp, vp, tables, ctx)
-            torch.cuda.synchronize()
-            want = tpa.paged_attention_plain(q, kp, vp, tables, ctx)
-            err = (got.float() - want.float()).abs().max().item()
-            check(torch.all(got[0] == 0), f"{tag}: ctx 0 row not zero")
-            print(f"[kernel] paged_decode_attention {tag}: max_abs_err "
-                  f"{err:.3e} (tolerance {TOL[dtype]:g})")
-            check(err <= TOL[dtype], "paged decode disagrees")
+            main = shape_name == "llama2_7b" and dtype == torch.bfloat16
+            # Paged decode: ragged contexts including an empty row; then
+            # the pipelined run's batch and table width (contexts up to
+            # its longest prompt + new tokens, two idle slots).
+            B = 8
+            err, kp, vp, tables, ctx = check_paged_decode(
+                gen, tag, dtype, dev, s, B, 8,
+                [0, 1, 127, 128, 129, 500, 777, 1024])
+            err16 = check_paged_decode(
+                gen, tag, dtype, dev, s, 16, 16,
+                [0, 1, 100, 127, 128, 129, 255, 256, 257, 500, 640, 777,
+                 0, 1000, 1100, 1128])[0]
+            if main:
+                worst["paged_decode_attention"] = max(err, err16)
             # Row write, one dropped row: bit-exact but for page P-1.
             kn = rand(gen, (B, KVH, D), dtype, dev)
             vn = rand(gen, (B, KVH, D), dtype, dev)
@@ -402,10 +476,16 @@ def phase_kernels(dev):
                         kname, f"{tag} b={b} sq={sq} sk={sk} q_off={q_off} "
                         f"kv_off={kv_off} causal={causal}", qf, kf, vf,
                         q_off, kv_off, causal, sm90)
-                    if shape_name == "llama2_7b" and dtype == torch.bfloat16:
+                    if main:
                         worst[kname] = max(worst[kname], err_f)
-            if shape_name == "llama2_7b" and dtype == torch.bfloat16:
-                worst["paged_decode_attention"] = err
+            # Packed waves of the pipelined run: 1,024-token rows of
+            # 128-, 512- and 1,024-token segments (the wrapper's kernel).
+            for nseg, seg_len in PACKED_WAVES:
+                err_w = check_packed_wave(gen, tag, dtype, dev, s, nseg,
+                                          seg_len)
+                if main:
+                    worst["flash_fwd_sm90"] = max(worst["flash_fwd_sm90"],
+                                                  err_w)
     return worst
 
 
@@ -439,12 +519,14 @@ def phase_main_path(dev, params, cfg):
         admit_s[0] += time.perf_counter() - t
         return out
 
-    def timed_decode():
+    def timed_decode():  # graph captures excluded (printed apart)
         n = eng.num_active
+        c0 = eng.graphs.capture_seconds
         t = time.perf_counter()
         out = inner_decode()
         torch.cuda.synchronize()
-        decode_s[0] += time.perf_counter() - t
+        decode_s[0] += time.perf_counter() - t - (
+            eng.graphs.capture_seconds - c0)
         decode_tokens[0] += n
         return out
 
@@ -704,6 +786,320 @@ def phase_timings(dev, eng, prompts, max_new, smi):
           f"{floor_eager:.4f}); row_write {out['row_write']['ms']:.4f} ms is "
           f"{out['row_write']['ms'] / floor_ms:.2f}x the floor")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pipelined multi-step decode under CUDA graphs
+# ---------------------------------------------------------------------------
+
+# The pipelined engine at the repo's serving guidance (page >= 64,
+# multi_step 16-32 with pipelined dispatch): 192 pages x 64 MB of KV.
+PIPE = dict(page_size=128, num_pages=192, max_batch=16, multi_step=16,
+            pipeline_depth=2, packed_admit=True)
+
+
+def pipelined_requests(rng):
+    """16 prompts of 100-1,000 tokens (the last two share a 256-token
+    prefix), 8 more for later, and 64-128 new tokens each."""
+    prefix = rng.integers(1, 32000, size=256).tolist()
+    first = [rng.integers(1, 32000, size=n).tolist()
+             for n in rng.integers(100, 1001, size=14)]
+    first += [prefix + rng.integers(1, 32000, size=n).tolist()
+              for n in (60, 150)]
+    later = [rng.integers(1, 32000, size=n).tolist()
+             for n in rng.integers(100, 1001, size=8)]
+    max_new = rng.integers(64, 129, size=24).tolist()
+    return first, later, max_new
+
+
+def host_ms(fn, n):
+    """Median host ms of one call of fn followed by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3
+
+
+def phase_pipelined(dev, params, cfg, smi):
+    """The pipelined engine on Llama-2-7B at full width and depth: 16
+    requests at the start, 8 more after the third step, every decode a
+    replayed graph; returns launches per kernel, the engine, the
+    requests and their streams."""
+    eng = LLMEngine(cfg, params, device=dev, **PIPE)
+    first, later, max_new = pipelined_requests(np.random.default_rng(10))
+    reqs = {}
+
+    def add(prompt, n):
+        rid = eng.add_request(prompt, n)
+        reqs[rid] = eng.waiting[-1]
+        return rid
+
+    def generated():
+        return sum(len(r.generated) for r in reqs.values())
+
+    # Device time of each wave (CUDA events around its dispatch, read at
+    # the end: no wait on the card) and its prompt tokens; classic
+    # admissions counted, so that decode steps are the steps without.
+    waves, classic = [], [0]
+    inner_wave, inner_admit = eng._dispatch_prefill_wave, eng._admit
+
+    def wave():
+        queue = list(eng.waiting)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        n = inner_wave()
+        if n:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            waves.append((start, end, sum(len(r.prompt) for r in queue[:n])))
+        return n
+
+    def admit():
+        classic[0] += 1
+        return inner_admit()
+
+    eng._dispatch_prefill_wave, eng._admit = wave, admit
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
+    t0 = time.perf_counter()
+    ids = [add(p, n) for p, n in zip(first, max_new[:16])]
+    done, steps, decode_s, decode_tokens = {}, 0, 0.0, 0
+    while eng.has_work():
+        if steps == 3:
+            ids += [add(p, n) for p, n in zip(later, max_new[16:])]
+        w0, a0, g0 = eng.waves_dispatched, classic[0], generated()
+        c0 = eng.graphs.capture_seconds
+        t = time.perf_counter()
+        done.update(eng.step())
+        dt = time.perf_counter() - t - (eng.graphs.capture_seconds - c0)
+        if eng.waves_dispatched == w0 and classic[0] == a0:
+            decode_s += dt
+            decode_tokens += generated() - g0
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: spec["kernel"].launches
+                for name, spec in KERNELS.items()}
+    eng._dispatch_prefill_wave, eng._admit = inner_wave, inner_admit
+
+    prompts = first + later
+    for rid, n in zip(ids, max_new):
+        toks = done.get(rid)
+        check(toks is not None and len(toks) == n
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"[pipelined] request {rid} did not finish with {n} tokens")
+    check(eng.allocator.num_free + eng.prefix_cache.num_idle
+          == eng.allocator.num_pages - 1, "[pipelined] pages leaked")
+    check(eng.prefix_cache.hits >= 1, "[pipelined] the prefix never hit")
+    check(eng.waves_dispatched >= 1 and eng.prefill_reconciles >= 1,
+          "[pipelined] no packed wave dispatched and reconciled")
+    g = eng.graphs
+    bound = len(tdg.KINDS) * g.bucket_bound()
+    check(g.captures <= bound, f"{g.captures} captures, bound {bound}")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched in the pipelined run")
+    for name in REPLACED:
+        check(launches[name] == 0,
+              f"{name} ran in the pipelined run beside its Hopper kernel")
+    wave_ms = sum(a.elapsed_time(b) for a, b, _ in waves)
+    wave_tokens = sum(n for _, _, n in waves)
+    print(f"[pipelined] Llama-2-7B bf16, {json.dumps(PIPE)}: {len(ids)} "
+          f"requests (8 added after step 3), {steps} steps, {wall:.2f} s; "
+          f"{eng.waves_dispatched} waves ({wave_tokens} prompt tokens), "
+          f"{classic[0]} classic admissions, prefix-cache hits "
+          f"{eng.prefix_cache.hits}, prefill reconciles "
+          f"{eng.prefill_reconciles}")
+    print(f"[pipelined] graph captures {g.captures} (bound {bound}: "
+          f"{len(tdg.KINDS)} kinds x {g.bucket_bound()} width buckets), "
+          f"{g.capture_seconds:.2f} s in all (warm-ups included; left out "
+          f"of the decode rate)")
+    print(f"[pipelined] launches, replays counted {json.dumps(launches)}")
+    busy_s = wall - g.capture_seconds
+    print(f"[pipelined] on {smi}: decode {decode_tokens / decode_s:.0f} "
+          f"tok/s ({decode_tokens} tokens reconciled over {decode_s:.3f} s "
+          f"of host time of the steps that admitted nothing); prefill "
+          f"through waves {wave_tokens / wave_ms * 1e3:.0f} tok/s "
+          f"({wave_tokens} tokens over {wave_ms:.1f} ms of device time, "
+          f"CUDA events); all steps {generated()} tokens in {busy_s:.2f} s "
+          f"({generated() / busy_s:.0f} tok/s, captures left out)")
+    return launches, eng, prompts, max_new, [done[rid] for rid in ids]
+
+
+def phase_pipelined_bf16_checks(dev, params, cfg, prompts, max_new,
+                                streams):
+    """Full width, bf16, reported and not gated (packing and speculation
+    change matmul shapes, so bf16 rounding may part streams): the share
+    of pipelined streams equal to the classic engine's, and a
+    speculative run's drafted and accepted counts."""
+    classic = LLMEngine(cfg, params, device=dev, page_size=128,
+                        num_pages=192, max_batch=16)
+    ids = [classic.add_request(p, n) for p, n in zip(prompts, max_new)]
+    done = {}
+    while classic.has_work():
+        done.update(classic.step())
+    same = sum(done[i] == s for i, s in zip(ids, streams))
+    first_diff = [next((j for j, (a, b) in enumerate(zip(done[i], s))
+                        if a != b), None) for i, s in zip(ids, streams)]
+    print(f"[pipelined] bf16 32 layers: {same} of {len(ids)} pipelined "
+          f"streams equal the classic engine's "
+          f"({same / len(ids):.1%}); first differing token per stream "
+          f"{first_diff}")
+    del classic
+    spec = LLMEngine(cfg, params, device=dev, page_size=128, num_pages=64,
+                     max_batch=8, speculative_k=4)
+    out = spec.generate(prompts[:8], 32)
+    check(all(len(o) == 32 for o in out), "speculative run incomplete")
+    print(f"[pipelined] bf16 32 layers, speculative_k=4, 8 requests x 32 "
+          f"tokens: {spec.spec_steps} verify steps, drafted "
+          f"{spec.spec_drafted}, accepted {spec.spec_accepted}")
+
+
+def graph_state(graphs, ctx, limit, seed, page=128):
+    """Live state for every slot at contexts `ctx` (random tokens, limits
+    ctx + limit, no EOS), each slot's table on pages of its own for the
+    positions it can reach; returns a copy of the state."""
+    B = len(ctx)
+    ctx = np.asarray(ctx, dtype=np.int32)
+    rng = np.random.default_rng(seed)
+    tdg.upload(graphs.state, np.stack([
+        rng.integers(1, 32000, size=B), ctx, ctx + 1, ctx + limit,
+        np.full(B, -1)]).astype(np.int32))
+    cols = -(-int(ctx.max() + limit + 1) // page)
+    P = graphs.cache["k"].shape[1]
+    check(B * cols <= P - 1, "too few pages for distinct tables")
+    tables = np.zeros(tuple(graphs.tables.shape), dtype=np.int32)
+    tables[:, :cols] = rng.permutation(P - 1)[:B * cols].reshape(B, cols)
+    tdg.upload(graphs.tables, tables)
+    return graphs.state.clone()
+
+
+def phase_graph_timings(main_eng, pipe_eng, smi):
+    """Host time of one synchronized decode_step at B = 8 and of one
+    16-step chunk at B = 16, eager against replay, and the card's busy
+    share of a replayed chunk."""
+    g8 = main_eng.graphs
+    ctx = [1000, 60, 777, 333, 900, 128, 640, 512]
+    snap8 = graph_state(g8, ctx, 64, 1)
+    W8 = main_eng._table_width(max(ctx) + 1)
+
+    def step(replay):
+        g8.state.copy_(snap8)
+        return g8.decode_step(W8) if replay else g8._step(g8.state, W8)
+
+    step_eager = host_ms(lambda: step(False), 20)
+    step_replay = host_ms(lambda: step(True), 20)
+    print(f"[graph] decode_step B=8 W={W8} Llama-2-7B bf16 on {smi}: host "
+          f"ms per synchronized call, eager {step_eager:.2f}, replay "
+          f"{step_replay:.2f} ({step_eager / step_replay:.2f}x)")
+    g16, n = pipe_eng.graphs, pipe_eng.multi_step
+    ctx = np.random.default_rng(3).integers(100, 1001, size=16)
+    snap16 = graph_state(g16, ctx, 4 * n, 2)
+    W16 = pipe_eng._table_width(int(ctx.max()) + n)
+
+    def chunk(replay):
+        g16.state.copy_(snap16)
+        return (g16.multi_step(W16, n) if replay
+                else g16._chunk(g16.state, W16, n, True))
+
+    chunk_eager = host_ms(lambda: chunk(False), 3)
+    chunk_replay = host_ms(lambda: chunk(True), 5)
+    print(f"[graph] {n}-step chunk B=16 W={W16} Llama-2-7B bf16 on {smi}: "
+          f"host ms per synchronized call, eager {chunk_eager:.1f}, replay "
+          f"{chunk_replay:.1f} ({chunk_eager / chunk_replay:.2f}x); per "
+          f"step {chunk_replay / n:.2f} ms replayed, "
+          f"{16 * n / chunk_replay * 1e3:.0f} tok/s at 16 slots")
+    profiled(lambda: chunk(True), 3,
+             f"replayed {n}-step chunk at 16 active requests", smi)
+
+
+def replay_equals_eager(dev, cfg, params):
+    """One 16-step chunk, replayed and eager, on the same state, tables
+    and cache: tokens, state and every page but the scratch page equal
+    to the bit."""
+    cache = tdec.init_kv_pages(cfg, 160, 128, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    g = tdg.DecodeGraphs(params, cache, cfg, 16, 32, dev)
+    ctx = np.random.default_rng(4).integers(60, 1000, size=16)
+    graph_state(g, ctx, 30, 5)
+    g.state[1, 3], g.state[2, 3] = -1, 0  # an idle slot
+    snap = g.state.clone()
+    pages = [t.clone() for t in cache.values()]
+    W = 8
+    replayed = g.multi_step(W, 16).clone()
+    after = [g.state.clone()] + [t.clone() for t in cache.values()]
+    g.state.copy_(snap)
+    for t, p in zip(cache.values(), pages):
+        t.copy_(p)
+    eager = g._chunk(g.state, W, 16, True)
+    torch.cuda.synchronize()
+
+    def flat(t):  # every flat page but the scratch page
+        return t.view(-1, t.shape[-2] * t.shape[-1])[:-1]
+
+    same = (torch.equal(replayed, eager) and torch.equal(after[0], g.state)
+            and all(torch.equal(flat(a), flat(b))
+                    for a, b in zip(after[1:], cache.values())))
+    live = int((replayed >= 0).sum())
+    print(f"[graph] replay vs eager, 16-step chunk at 16 slots, "
+          f"{str(cfg.dtype)[6:]} 2 layers full width: identical {same} "
+          f"({live} tokens; tolerance: bit for bit)")
+    check(same, "a replayed chunk differs from the eager one")
+
+
+def phase_pipelined_fp32(dev):
+    """fp32, full width, 2 layers: replay equals eager (also bf16), the
+    pipelined engine equals the classic one, speculative decoding equals
+    plain greedy, and a handoff continues exactly."""
+    cfg = TransformerConfig.llama2_7b(num_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=3, device=dev, dtype=torch.float32)
+    replay_equals_eager(dev, cfg, params)
+    bf = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    replay_equals_eager(dev, bf, init_params(bf, seed=3, device=dev,
+                                             dtype=bf.dtype))
+    rng = np.random.default_rng(6)
+    prompts = make_prompts(rng, [60, 333, 700, 1000, 129, 257], 0, [])
+    prompts.append((prompts[0][:7] * 40)[:280])  # repetitive: drafts
+    kw = dict(device=dev, page_size=128, num_pages=64, max_batch=4)
+    want = LLMEngine(cfg, params, **kw).generate(prompts, 24)
+    pipe = LLMEngine(cfg, params, multi_step=16, **kw)
+    same = pipe.generate(prompts, 24) == want
+    print(f"[pipelined] fp32 2 layers, {len(prompts)} requests x 24 "
+          f"tokens, 4 slots: pipelined (multi_step 16, packed admission, "
+          f"{pipe.waves_dispatched} waves) tokens identical to classic "
+          f"{same}")
+    check(same and pipe.waves_dispatched >= 1,
+          "fp32 pipelined tokens differ from the classic engine's")
+    spec = LLMEngine(cfg, params, speculative_k=4, **kw)
+    same = spec.generate(prompts, 24) == want
+    print(f"[pipelined] fp32 2 layers: speculative_k=4 tokens identical to "
+          f"plain greedy {same} ({spec.spec_steps} verify steps, drafted "
+          f"{spec.spec_drafted}, accepted {spec.spec_accepted})")
+    check(same and spec.spec_accepted > 0,
+          "fp32 speculative tokens differ from plain greedy")
+    pre = LLMEngine(cfg, params, multi_step=16, **kw)
+    rid = pre.add_request(prompts[3], 64)
+    pre.step()
+    pre.step()  # a wave and two chunks in flight
+    bundle = pre.export_kv(rid)
+    dec = LLMEngine(cfg, params, **kw)
+    rid2 = dec.import_kv(bundle, 64)
+    got = {}
+    while dec.has_work():
+        got.update(dec.step())
+    ref = LLMEngine(cfg, params, **kw).generate([prompts[3]], 64)[0]
+    same = got[rid2] == ref
+    print(f"[pipelined] fp32 2 layers: export_kv after "
+          f"{len(bundle['generated'])} tokens from a pipelined engine, "
+          f"import_kv into another: continuation identical {same}")
+    check(same, "the imported request's continuation differs")
 
 
 # ---------------------------------------------------------------------------
@@ -1154,21 +1550,31 @@ def main() -> int:
     print(f"[main] Llama-2-7B random bf16 weights: {num_params(cfg):,} "
           f"params in {time.perf_counter() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    launches_serve, eng, prompts, max_new, rates = phase_main_path(
+    _, eng, prompts, max_new, rates = phase_main_path(
         dev, params, cfg)
     print(f"[main] on {smi}: prefill {rates['prefill_tok_s']:.0f} tok/s, "
           f"decode {rates['decode_tok_s']:.0f} tok/s (host clock around "
-          f"synchronized admit / decode calls)")
+          f"synchronized admit / decode calls; every decode step a graph "
+          f"replay; {eng.graphs.captures} captures, "
+          f"{eng.graphs.capture_seconds:.2f} s, left out)")
     phase_profile(eng, smi)
     timings = phase_timings(dev, eng, prompts, max_new, smi)
-    del eng
-    gc.collect()  # the engine's timing hooks form a reference cycle
+    launches_serve, pipe, pipe_prompts, pipe_new, streams = \
+        phase_pipelined(dev, params, cfg, smi)
+    phase_graph_timings(eng, pipe, smi)
+    del eng, pipe
+    gc.collect()  # the engines' timing hooks form reference cycles
+    torch.cuda.empty_cache()
+    phase_pipelined_bf16_checks(dev, params, cfg, pipe_prompts, pipe_new,
+                                streams)
+    gc.collect()
     torch.cuda.empty_cache()
     phase_depth_bf16(dev, params, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     phase_depth_fp32(dev)
+    phase_pipelined_fp32(dev)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[main] serving phases done; device memory still allocated "
@@ -1184,8 +1590,8 @@ def main() -> int:
     kernels = []
     for kname, spec in KERNELS.items():
         r = timings[kname]
-        # flash_fwd runs on both paths: its count here is the serving
-        # path's; the training path's is printed by [train].
+        # flash_fwd runs on both paths: its count here is the pipelined
+        # serving run's (replays counted); [main] and [train] print theirs.
         launches = (launches_serve[kname] if kname in SERVE_KERNELS
                     else train_launches[kname])
         kernels.append({

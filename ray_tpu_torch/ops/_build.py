@@ -11,7 +11,10 @@ is newer than it.
 
 A `Kernel` is one C entry point of one source: calling `launch()` builds
 and loads the library if needed, calls the entry point, raises on a
-non-zero cudaError_t, and counts the launch in `Kernel.launches`.
+non-zero cudaError_t, and counts the launch in `Kernel.launches`.  A call
+made while the stream is capturing a CUDA graph launches nothing: it is
+not counted but logged, and the graph adds the launches of its capture
+at each replay (`take_captured`, models/decode_graph.py).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_captured: list = []
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -168,4 +172,15 @@ class Kernel:
             raise RuntimeError(
                 f"{self.source}.cu {self.symbol} failed to launch: CUDA "
                 f"error {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            _captured.append(self)
+        else:
+            self.launches += 1
+
+
+def take_captured() -> list:
+    """The kernels called under stream capture since the last call, one
+    entry per call, and clear the log."""
+    taken = _captured[:]
+    _captured.clear()
+    return taken

@@ -18,7 +18,9 @@ plain PyTorch version of the same function beside it:
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `write_page_tokens` (prefill)
 was an XLA scatter in the reference, not a kernel, and stays a plain
-in-place `index_put_` here on every device.
+in-place `index_put_` here on every device; like the row write it sends
+pad rows to the scratch page instead of filtering them, so neither
+waits on the card.
 """
 
 from __future__ import annotations
@@ -167,17 +169,21 @@ def write_page_tokens(k_pages, v_pages, k_new, v_new, block_tables,
 
     k_pages/v_pages: [P, page, KVH*D]; k_new/v_new: [B, S, KVH, D];
     positions: [B, S] absolute positions (define page + offset), < 0 on
-    padding; block_tables: [B, W].  Rows with position < 0 are dropped
-    (never written, never wrapped to the last page).  Returns the same
-    (k_pages, v_pages) tensors."""
+    padding; block_tables: [B, W].  Rows with position < 0 go to the
+    scratch page FP-1, offset 0, as in `write_token_rows`: the reference
+    drops them, and every page but the scratch page, which the engine
+    never allocates, ends up the same.  Routing them there instead of
+    filtering them out keeps the call free of any wait on the device.
+    Returns the same (k_pages, v_pages) tensors."""
     B, S, KVH, D = k_new.shape
-    page = k_pages.shape[1]
-    keep = (positions >= 0).reshape(-1)
+    FP, page = k_pages.shape[:2]
+    valid = (positions >= 0).reshape(-1)
     pos = positions.long().clamp_min(0)
-    pages = block_tables.long().gather(1, pos // page).reshape(-1)[keep]
-    offs = (pos % page).reshape(-1)[keep]
-    k_pages.index_put_((pages, offs), k_new.reshape(B * S, -1)[keep])
-    v_pages.index_put_((pages, offs), v_new.reshape(B * S, -1)[keep])
+    pages = block_tables.long().gather(1, pos // page).reshape(-1)
+    pages = torch.where(valid, pages, torch.full_like(pages, FP - 1))
+    offs = torch.where(valid, (pos % page).reshape(-1), 0)
+    k_pages.index_put_((pages, offs), k_new.reshape(B * S, -1))
+    v_pages.index_put_((pages, offs), v_new.reshape(B * S, -1))
     return k_pages, v_pages
 
 

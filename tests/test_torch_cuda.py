@@ -7,7 +7,10 @@ Every test here carries the `cuda` marker and skips, from inside the
 
 Shapes are small and odd on purpose (page 4, KD = 32, prime batches, head
 dims that are not powers of two), beside one Llama-2-7B-shaped case per
-kernel.
+kernel.  The last tests hold the decode's CUDA graphs to the eager
+functions bit for bit, count kernel launches through replays, show that
+the engine's dispatches wait on nothing (sync debug mode "error") and run
+the pipelined and speculative engines against the classic one.
 """
 
 import ctypes
@@ -31,6 +34,7 @@ tse = importlib.import_module(f"{PORT}.serve.llm_engine")
 tce = importlib.import_module(f"{PORT}.ops.fused_ce")
 tts = importlib.import_module(f"{PORT}.train.train_state")
 toptim = importlib.import_module(f"{PORT}.train.optim")
+_build = importlib.import_module(f"{PORT}.ops._build")
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +49,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # Every kernel built before a test starts (a no-op once built), so
+    # that no engine's first step waits on nvcc past its queue timeout.
+    _build.build()
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -389,7 +396,6 @@ def test_fused_ce_on_cuda_matches_cpu(cuda):
 # 64 or 128.
 # ---------------------------------------------------------------------------
 
-_build = importlib.import_module(f"{PORT}.ops._build")
 WGMMA_TILE_TEST = _build.Kernel(
     "flash_fwd_sm90", "wgmma_tile_test",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
@@ -573,3 +579,180 @@ def test_main_path_shape_takes_the_hopper_kernels(cuda, dtype):
     got = [kn.launches - b for kn, b in zip(kernels, before)]
     sm90 = dtype == torch.bfloat16
     assert got == [int(sm90), int(not sm90)] * 3
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the decode step and the pipelined engine
+# ---------------------------------------------------------------------------
+
+tdec = importlib.import_module(f"{PORT}.models.decoding")
+tdg = importlib.import_module(f"{PORT}.models.decode_graph")
+
+
+def _graph_setup(cuda, dtype):
+    """DecodeGraphs over a 2-layer, head-dim-128 model with a filled
+    cache and three live slots of a five-slot batch (two idle, one of
+    them with an EOS that may fire)."""
+    cfg = ttf.TransformerConfig.tiny(
+        num_layers=2, num_heads=4, num_kv_heads=2, hidden_size=512,
+        intermediate_size=256, vocab_size=128, max_seq_len=256,
+        dtype=dtype)
+    params = ttf.init_params(cfg, seed=1, device=cuda, dtype=dtype)
+    page, num_pages, B = 16, 40, 5
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cache = tdec.init_kv_pages(cfg, num_pages, page, device=cuda)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+    graphs = tdg.DecodeGraphs(params, cache, cfg, B, 256 // page, cuda)
+    ctx = np.array([20, 70, 0, 100, 0], dtype=np.int32)
+    live = ctx > 0
+    state = np.stack([np.array([5, 9, 0, 77, 0]),
+                      np.where(live, ctx, -1), ctx + 1,
+                      np.where(live, ctx + 40, -1),
+                      np.array([-1, 3, -1, -1, -1])]).astype(np.int32)
+    tables = np.zeros((B, 16), dtype=np.int32)
+    tables[live] = np.arange(1, 1 + 16 * 3).reshape(3, 16) % (num_pages - 1)
+    tdg.upload(graphs.state, state)
+    tdg.upload(graphs.tables, tables)
+    return graphs, cache
+
+
+def _snapshot(graphs, cache):
+    return [t.clone() for t in (graphs.state, cache["k"], cache["v"])]
+
+
+def _restore(graphs, cache, snap):
+    for t, s in zip((graphs.state, cache["k"], cache["v"]), snap):
+        t.copy_(s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["decode_step", "decode_multi_step"])
+def test_graph_replay_equals_eager_bit_for_bit(cuda, dtype, kind):
+    """A replay of the captured graph and the eager function, on the same
+    state, tables and cache at two W buckets: outputs, state and every
+    page but the scratch page identical to the bit."""
+    graphs, cache = _graph_setup(cuda, dtype)
+    L, P = cache["k"].shape[:2]
+    for W in (16, 8):
+        snap = _snapshot(graphs, cache)
+        if kind == "decode_step":
+            replayed = graphs.decode_step(W).clone()
+        else:
+            replayed = graphs.multi_step(W, 6).clone()
+        after = _snapshot(graphs, cache)
+        _restore(graphs, cache, snap)
+        if kind == "decode_step":
+            eager = graphs._step(graphs.state, W)
+        else:
+            eager = graphs._chunk(graphs.state, W, 6, True)
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager), (W, kind)
+        for a, b in zip(after[:1], (graphs.state,)):
+            assert torch.equal(a, b)
+        for a, b in zip(after[1:], (cache["k"], cache["v"])):
+            assert torch.equal(a.view(L * P, -1)[:-1], b.view(L * P, -1)[:-1])
+        _restore(graphs, cache, snap)
+    assert graphs.captures == 2 <= graphs.bucket_bound()
+
+
+def test_replay_counts_each_kernel_launch(cuda):
+    """A replay adds the launches its capture recorded: after the first
+    call (warm-up, capture, replay), n replays count n x the launches of
+    one eager call, and the capture alone counts none."""
+    graphs, _ = _graph_setup(cuda, torch.bfloat16)
+    kernels = (tpa.PAGED_DECODE, tpa.ROW_WRITE)
+    before = [k.launches for k in kernels]
+    graphs._chunk(graphs.state.clone(), 8, 4, False)
+    per_call = [k.launches - b for k, b in zip(kernels, before)]
+    assert per_call == [2 * 4, 2 * 4]  # 2 layers x 4 steps, one each
+    before = [k.launches for k in kernels]
+    graphs.multi_step(8, 4)  # warm-up (real launches), capture, replay
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [2 * n for n in per_call]
+    before = [k.launches for k in kernels]
+    for _ in range(3):
+        graphs.multi_step(8, 4)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [3 * n for n in per_call]
+
+
+def _card_engine(cuda, **kw):
+    cfg = ttf.TransformerConfig.tiny(
+        num_layers=2, num_heads=4, num_kv_heads=2, hidden_size=512,
+        intermediate_size=256, vocab_size=128, max_seq_len=128,
+        dtype=torch.float32)
+    params = ttf.init_params(cfg, seed=4, device=cuda, dtype=torch.float32)
+    return tse.LLMEngine(cfg, params, device=cuda,
+                         **{**dict(page_size=8, num_pages=64, max_batch=4),
+                            **kw})
+
+
+def test_dispatches_never_synchronize(cuda):
+    """Under torch.cuda.set_sync_debug_mode("error") a packed wave and a
+    chunk dispatch run (graphs of every bucket captured beforehand, as
+    the capture itself synchronizes); the streams then finish as the
+    classic engine's."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 128, size=n).tolist() for n in (12, 9, 14)]
+    want = _card_engine(cuda).generate(prompts, 10)
+    eng = _card_engine(cuda, multi_step=4)
+    eng.graphs.state[1].fill_(-1)  # dead slots while capturing
+    for W in (1, 2, 4, 8, 16):
+        eng.graphs.multi_step(W, 4)
+    ids = [eng.add_request(p, 10) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert eng._dispatch_prefill_wave() == 3
+        assert eng._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    done = {}
+    while eng.has_work():
+        done.update(eng.step())
+    assert [done[i] for i in ids] == want
+    assert eng.graphs.captures == 5
+
+
+def test_write_page_tokens_never_synchronizes(cuda):
+    """The prefill write with pad rows waits on nothing, and matches its
+    CPU run outside the scratch page."""
+    rng = np.random.default_rng(6)
+    P, page, KD = 9, 4, 32
+    kp = _rand(rng, (P, page, KD), torch.float32, cuda)
+    kn = _rand(rng, (2, 6, 2, 16), torch.float32, cuda)
+    tables = torch.tensor([[3, 1], [5, 2]], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([[0, 1, 2, 3, 4, -1], [-1] * 6], dtype=torch.int32,
+                       device=cuda)
+    want = kp.cpu()
+    tpa.write_page_tokens(want, want.clone(), kn.cpu(), kn.cpu(),
+                          tables.cpu(), pos.cpu())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpa.write_page_tokens(kp, kp.clone(), kn, kn, tables, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(kp.cpu()[:-1], want[:-1])
+
+
+def test_pipelined_engine_equals_classic_on_card(cuda):
+    """fp32: pipelined chunks with packed admission (depth 2), and the
+    speculative engine, give the classic engine's greedy streams on the
+    card, every decode a graph replay."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 128, size=n).tolist()
+               for n in (12, 30, 5, 17, 9, 22)]
+    prompts.append(([4, 5, 6] * 8)[:20])
+    want = _card_engine(cuda).generate(prompts, 12)
+    launches = tpa.PAGED_DECODE.launches
+    eng = _card_engine(cuda, multi_step=4)
+    assert eng.generate(prompts, 12) == want
+    assert eng.waves_dispatched >= 1 and eng.prefill_reconciles >= 1
+    assert tpa.PAGED_DECODE.launches > launches
+    assert eng.graphs.captures <= eng.graphs.bucket_bound()
+    spec = _card_engine(cuda, speculative_k=4)
+    assert spec.generate(prompts, 12) == want
+    assert spec.spec_steps > 0

@@ -1,10 +1,15 @@
 """The port's paged-KV decoding against the JAX reference, on the CPU.
 
-prefill, prefill_with_context and decode_step run on the same params,
-tokens and block tables in ray_tpu.models.decoding and its port; logits
-and the written cache pages are compared.  fp32 throughout: logits to
-1e-4 and cache rows to 1e-5 (the same arithmetic summed in another
-order).
+prefill, prefill_with_context, decode_step, decode_multi_step,
+merge_slot_state, packed_prefill_admit, verify_step and the KV handoff's
+gather_kv_pages / splice_kv_pages run on the same params, tokens and
+block tables in ray_tpu.models.decoding and its port; logits, tokens,
+the chained slot state and the written cache pages are compared.  fp32
+throughout: logits to 1e-4 and cache rows to 1e-5 (the same arithmetic
+summed in another order); tokens and slot state exactly.  Where the
+reference drops a write (pad rows, idle slots, pad handoff pages), the
+port writes the scratch page, flat index L*P - 1, which is left out of
+the comparison.
 """
 
 import dataclasses
@@ -96,7 +101,8 @@ def test_prefill_context_and_decode_match_jax(cfgs, params):
                               jnp.asarray(tables[:2]), jc)
     tl, tcache = tdec.prefill(tp, *_t(tokens, positions), tcache,
                               torch.from_numpy(tables[:2]), tc)
-    _assert_close(tl, jl, tcache, jcache)
+    scratch = jc.num_layers * NUM_PAGES - 1
+    _assert_close(tl, jl, tcache, jcache, skip_flat_page=scratch)
 
     # prefill_with_context: sequence 0 continues with 4 more tokens.
     sfx = np.zeros((1, 8), dtype=np.int32)
@@ -107,7 +113,7 @@ def test_prefill_context_and_decode_match_jax(cfgs, params):
         jp, *_j(sfx, spos), jcache, jnp.asarray(tables[:1, :4]), jc)
     tl, tcache = tdec.prefill_with_context(
         tp, *_t(sfx, spos), tcache, torch.from_numpy(tables[:1, :4]), tc)
-    _assert_close(tl, jl, tcache, jcache)
+    _assert_close(tl, jl, tcache, jcache, skip_flat_page=scratch)
 
     # decode_step: two live slots and an idle one (position -1), whose
     # row goes to the scratch page, flat index L*P - 1.
@@ -120,7 +126,7 @@ def test_prefill_context_and_decode_match_jax(cfgs, params):
         tl, tcache = tdec.decode_step(tp, torch.from_numpy(last), tcache,
                                       *_t(tables[:, :4], pos, ctx), tc)
         _assert_close(tl[:2], jl[:2], tcache, jcache,
-                      skip_flat_page=jc.num_layers * NUM_PAGES - 1)
+                      skip_flat_page=scratch)
         last = np.asarray(jl).argmax(-1).astype(np.int32)
         pos = np.where(pos >= 0, pos + 1, -1).astype(np.int32)
         ctx = (ctx + (pos >= 0)).astype(np.int32)
@@ -173,3 +179,183 @@ def test_cache_is_written_in_place(cfgs, params):
     _, out = tdec.prefill(tp, tokens, positions, cache, table, tc)
     assert out["k"] is k_before
     assert k_before[:, 4, :3].abs().sum() > 0
+
+
+def _prefilled(jc, tc, jp, tp, prompts, tables):
+    """JAX and port caches holding the same prompts' K/V (one prefill
+    each), and the prompts' lengths."""
+    jcache = jdec.init_kv_pages(jc, NUM_PAGES, PAGE)
+    tcache = tdec.init_kv_pages(tc, NUM_PAGES, PAGE, device="cpu")
+    S = 16
+    tokens = np.zeros((len(prompts), S), dtype=np.int32)
+    positions = np.full((len(prompts), S), -1, dtype=np.int32)
+    for r, p in enumerate(prompts):
+        tokens[r, :len(p)] = p
+        positions[r, :len(p)] = np.arange(len(p))
+    jl, jcache = jdec.prefill(jp, *_j(tokens, positions), jcache,
+                              jnp.asarray(tables), jc)
+    _, tcache = tdec.prefill(tp, *_t(tokens, positions), tcache,
+                             torch.from_numpy(tables), tc)
+    first = np.asarray(jl).argmax(-1).astype(np.int32)
+    return jcache, tcache, first
+
+
+def test_decode_multi_step_matches_jax(cfgs, params):
+    """Five greedy steps with no host read: one slot stopped by its
+    limit inside the chunk, one by its EOS, one dead from the start.
+    Tokens (-1 past each stop) and the chained state are identical, the
+    pages equal outside the scratch page."""
+    jc, tc = cfgs
+    jp, tp = params
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 64, size=n) for n in (7, 3, 5)]
+    tables = np.zeros((4, WIDTH), dtype=np.int32)
+    tables[:3, :4] = np.arange(1, 13).reshape(3, 4)
+    jcache, tcache, first = _prefilled(jc, tc, jp, tp, prompts,
+                                       tables[:3])
+    lens = np.array([7, 3, 5, 0], dtype=np.int32)
+    tokens = np.append(first, 0).astype(np.int32)
+    positions = np.where(np.arange(4) < 3, lens, -1).astype(np.int32)
+    ctx = (lens + 1).astype(np.int32)
+    limits = np.array([9, 30, 30, -1], dtype=np.int32)  # slot 0: 3 tokens
+    eos = np.full(4, -1, dtype=np.int32)
+    # Slot 1's EOS: the token it emits at its second step (it may stop
+    # sooner if that token came earlier).
+    out0 = jdec.decode_multi_step(jp, jnp.asarray(tokens), jcache,
+                                  *_j(tables[:, :4], positions, ctx, limits,
+                                      eos), jc, 5)
+    # The call donated the JAX cache: prefill both afresh.
+    jcache, tcache, _ = _prefilled(jc, tc, jp, tp, prompts, tables[:3])
+    eos[1] = int(np.asarray(out0[0])[1, 1])
+    want = jdec.decode_multi_step(jp, jnp.asarray(tokens), jcache,
+                                  *_j(tables[:, :4], positions, ctx, limits,
+                                      eos), jc, 5)
+    state = _t(tokens, positions, ctx, limits, eos)
+    got = tdec.decode_multi_step(tp, state[0], tcache,
+                                 torch.from_numpy(tables[:, :4]), *state[1:],
+                                 tc, 5)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    out = got[0].numpy()
+    assert (out[0, 3:] == -1).all() and (out[0, :3] >= 0).all()
+    stop = list(out[1]).index(eos[1])
+    assert (out[1, stop + 1:] == -1).all()
+    assert (out[3] == -1).all()
+    # The inputs are not written: the caller chains off the outputs.
+    np.testing.assert_array_equal(state[1].numpy(), positions)
+    _assert_close(torch.zeros(1), np.zeros(1), got[4], want[4],
+                  skip_flat_page=jc.num_layers * NUM_PAGES - 1)
+
+
+def test_merge_slot_state_matches_jax_in_place():
+    rng = np.random.default_rng(9)
+    old = [rng.integers(-1, 50, size=6).astype(np.int32) for _ in range(5)]
+    new = [rng.integers(-1, 50, size=6).astype(np.int32) for _ in range(5)]
+    mask = np.array([1, 0, 0, 1, 1, 0], dtype=bool)
+    want = jdec.merge_slot_state(*_j(*old), jnp.asarray(mask), *_j(*new))
+    state = _t(*[o.copy() for o in old])
+    got = tdec.merge_slot_state(*state, torch.from_numpy(mask), *_t(*new))
+    for s, g, w in zip(state, got, want):
+        assert g is s  # written in place
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_packed_prefill_admit_matches_jax(cfgs, params):
+    """Four 8-token segments in two 16-token rows: prompts of 8, 5 and 3
+    tokens (the 3-token one finished by its first token, limit == L) and
+    one unused segment (slot == max_batch).  First tokens and the folded
+    slot state are identical; the written pages equal JAX's outside the
+    scratch page."""
+    jc, tc = cfgs
+    jp, tp = params
+    rng = np.random.default_rng(10)
+    lens, seg_len, R, S, B = (8, 5, 3), 8, 2, 16, 5
+    tokens = np.zeros((R, S), dtype=np.int32)
+    positions = np.full((R, S), -1, dtype=np.int32)
+    row_tables = np.zeros((R, S // PAGE), dtype=np.int32)
+    seg_slot = np.array([3, 0, 4, B], dtype=np.int32)
+    seg_limit = np.array([8 + 5, 5 + 4, 3, 0], dtype=np.int32)
+    seg_eos = np.array([-1, -1, -1, -1], dtype=np.int32)
+    for i, n in enumerate(lens):
+        r, j0 = divmod(i * seg_len, S)
+        tokens[r, j0:j0 + n] = rng.integers(0, 64, size=n)
+        positions[r, j0:j0 + n] = np.arange(n)
+        pg = j0 // PAGE
+        row_tables[r, pg:pg + 2] = [2 * i + 3, 2 * i + 4]
+    st = [rng.integers(0, 9, size=B).astype(np.int32) for _ in range(5)]
+    args = (tokens, positions, row_tables, seg_slot, seg_limit, seg_eos)
+    want = jdec.packed_prefill_admit(
+        jp, *_j(*args), jdec.init_kv_pages(jc, NUM_PAGES, PAGE), *_j(*st),
+        jc, seg_len)
+    t_st = _t(*[s.copy() for s in st])
+    got = tdec.packed_prefill_admit(
+        tp, *_t(*args), tdec.init_kv_pages(tc, NUM_PAGES, PAGE,
+                                           device="cpu"), *t_st, tc,
+        seg_len)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for s, g, w in zip(t_st, got[2:], want[2:]):
+        assert g is s  # folded in place
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[3].numpy()[4] == -1  # finished by its first token
+    np.testing.assert_array_equal(got[3].numpy()[[1, 2]], st[1][[1, 2]])
+    _assert_close(torch.zeros(1), np.zeros(1), got[1], want[1],
+                  skip_flat_page=jc.num_layers * NUM_PAGES - 1)
+
+
+def test_verify_step_matches_jax(cfgs, params):
+    """Logits at every position of [last token, draft...] to 1e-4, over
+    two sequences and a pad row, and the chunk's pages."""
+    jc, tc = cfgs
+    jp, tp = params
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 64, size=n) for n in (6, 9)]
+    tables = np.zeros((3, 4), dtype=np.int32)
+    tables[:2] = np.arange(1, 9).reshape(2, 4)
+    jcache, tcache, first = _prefilled(jc, tc, jp, tp, prompts, tables[:2])
+    tokens = np.zeros((3, 4), dtype=np.int32)
+    positions = np.full((3, 4), -1, dtype=np.int32)
+    for r, (p, n) in enumerate(zip(prompts, (4, 2))):
+        tokens[r, 0] = first[r]
+        tokens[r, 1:n] = rng.integers(0, 64, size=n - 1)
+        positions[r, :n] = np.arange(len(p), len(p) + n)
+    jl, jcache = jdec.verify_step(jp, *_j(tokens, positions), jcache,
+                                  jnp.asarray(tables), jc)
+    tl, tcache = tdec.verify_step(tp, *_t(tokens, positions), tcache,
+                                  torch.from_numpy(tables), tc)
+    assert tl.shape == (3, 4, jc.vocab_size)
+    _assert_close(tl[:2], jl[:2], tcache, jcache,
+                  skip_flat_page=jc.num_layers * NUM_PAGES - 1)
+
+
+def test_gather_and_splice_kv_pages_match_jax(cfgs):
+    """A handoff's page column out of one cache and into another: the
+    gather is exact; the splice's pad rows (-1) land in the scratch page,
+    never in the next layer's page 0, and every other page equals
+    JAX's."""
+    jc, tc = cfgs
+    rng = np.random.default_rng(13)
+    shape = (jc.num_layers, NUM_PAGES, PAGE, 2 * 8)
+    src = {n: rng.standard_normal(shape).astype(np.float32)
+           for n in ("k", "v")}
+    dst = {n: rng.standard_normal(shape).astype(np.float32)
+           for n in ("k", "v")}
+    ids = np.array([5, 9, 2, 5], dtype=np.int32)
+    jk, jv = jdec.gather_kv_pages({n: jnp.asarray(a) for n, a in src.items()},
+                                  jnp.asarray(ids))
+    tk, tv = tdec.gather_kv_pages({n: torch.from_numpy(a)
+                                   for n, a in src.items()},
+                                  torch.from_numpy(ids))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    dest = np.array([7, 3, -1, -1], dtype=np.int32)
+    want = jdec.splice_kv_pages({n: jnp.asarray(a) for n, a in dst.items()},
+                                jk, jv, jnp.asarray(dest))
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in dst.items()}
+    got = tdec.splice_kv_pages(tcache, tk, tv, torch.from_numpy(dest))
+    assert got is tcache
+    _assert_close(torch.zeros(1), np.zeros(1), got, want,
+                  skip_flat_page=jc.num_layers * NUM_PAGES - 1)
+    for layer in range(jc.num_layers):  # no pad row aliased onto page 0
+        np.testing.assert_array_equal(got["k"][layer, 0].numpy(),
+                                      dst["k"][layer, 0])
+    np.testing.assert_array_equal(got["v"][1, 3].numpy(), src["v"][1, 9])

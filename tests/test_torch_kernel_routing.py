@@ -123,3 +123,24 @@ def test_build_stale_when_source_or_header_is_newer(fake_tree, newer):
         os.utime(csrc / newer, (300, 300))
     assert build._stale("k") == (newer is not None)
     assert build.sources() == ["k"]
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_launch_under_capture_is_logged_not_counted(monkeypatch, capturing):
+    """A launch counts at once; under stream capture it is logged for the
+    graph instead (each replay adds it), and take_captured clears the
+    log."""
+    class Stream:
+        cuda_stream = 0
+
+    kernel = build.Kernel("k", "k", [])
+    kernel._fn = lambda stream: 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    build.take_captured()
+    kernel.launch(torch.device("cuda"))
+    kernel.launch(torch.device("cuda"))
+    assert kernel.launches == (0 if capturing else 2)
+    assert build.take_captured() == ([kernel, kernel] if capturing else [])
+    assert build.take_captured() == []

@@ -103,8 +103,9 @@ def test_write_token_rows_bit_exact_vs_jax(B):
 
 
 def test_write_page_tokens_matches_jax_with_pad_rows():
-    """Prefill scatter, pad rows (position -1) dropped and never wrapped
-    onto the last page: bit-identical to JAX's."""
+    """Prefill scatter: pad rows (position -1) go to the scratch page
+    P-1, where the reference drops them; every other page is
+    bit-identical to JAX's, and no table names the scratch page."""
     rng = np.random.default_rng(5)
     B, S, KVH, D, page, W, P = 3, 8, 2, 4, 4, 3, 12
     kp = _rand(rng, P, page, KVH * D)
@@ -121,6 +122,44 @@ def test_write_page_tokens_matches_jax_with_pad_rows():
     tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
     tpa.write_page_tokens(tk, tv, *map(torch.from_numpy,
                                        (kn, vn, tables, pos)))
-    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
-    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    assert np.array_equal(tk.numpy()[P - 1], kp[P - 1])  # no wrap
+    np.testing.assert_array_equal(tk.numpy()[:-1], np.asarray(jk)[:-1])
+    np.testing.assert_array_equal(tv.numpy()[:-1], np.asarray(jv)[:-1])
+    assert not (tables == P - 1).any()
+    # The scratch page took pad rows only (offset 0), nothing wrapped.
+    assert np.array_equal(tk.numpy()[P - 1, 1:], kp[P - 1, 1:])
+
+
+@pytest.mark.parametrize("case", ["all_pad", "mixed", "mid_page"])
+def test_write_page_tokens_pad_edges_match_jax(case):
+    """The edges of the scratch-page routing: a call whose rows are all
+    pad, pad rows mixed into live ones (GQA rows, two layers' pages in
+    the flat view), and a row that ends mid-page.  Every page but the
+    scratch page P-1 is bit-identical to JAX's; the scratch page changes
+    at offset 0 only (each case has pad rows)."""
+    seed = {"all_pad": 1, "mixed": 2, "mid_page": 3}[case]
+    rng = np.random.default_rng(seed)
+    B, S, KVH, D, page, W, P = 2, 12, 2, 8, 4, 4, 18
+    kp = _rand(rng, P, page, KVH * D)
+    vp = _rand(rng, P, page, KVH * D)
+    kn = _rand(rng, B, S, KVH, D)
+    vn = _rand(rng, B, S, KVH, D)
+    tables = rng.permutation(P - 1)[:B * W].reshape(B, W).astype(np.int32)
+    pos = np.full((B, S), -1, dtype=np.int32)
+    if case == "mixed":
+        pos[0, :7] = np.arange(7)            # ends mid-page, pads after
+        pos[1, 3:9] = np.arange(5, 11)       # pads on both sides
+    elif case == "mid_page":
+        pos[0, :] = np.arange(2, 2 + S)      # starts and ends mid-page
+        pos[1, :10] = np.arange(10)
+    jk, jv = jpa.write_page_tokens(jnp.asarray(kp), jnp.asarray(vp),
+                                   jnp.asarray(kn), jnp.asarray(vn),
+                                   jnp.asarray(tables), jnp.asarray(pos))
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tpa.write_page_tokens(tk, tv, *map(torch.from_numpy,
+                                       (kn, vn, tables, pos)))
+    np.testing.assert_array_equal(tk.numpy()[:-1], np.asarray(jk)[:-1])
+    np.testing.assert_array_equal(tv.numpy()[:-1], np.asarray(jv)[:-1])
+    np.testing.assert_array_equal(tk.numpy()[-1, 1:], kp[-1, 1:])
+    assert not np.array_equal(tk.numpy()[-1, 0], kp[-1, 0])
+    if case == "all_pad":
+        np.testing.assert_array_equal(tk.numpy()[:-1], kp[:-1])
