@@ -14,17 +14,24 @@ Phases, each of which raises (exit code != 0) if it fails:
      fp32, at Llama-2-7B shapes (H = KVH = 32, D = 128, page 128) and at
      a GQA shape (H = 16, KVH = 4): ragged contexts with a zero row,
      dropped write rows, sq < sk, offsets and a fully masked chunk; bf16
-     flash forwards through both the Hopper and the PR 2 kernel;
+     flash forwards through both the Hopper and the older kernel; the
+     rotating row write (rope_row_write: rotary embedding of q and k and
+     the K/V row write in one launch) bit-exact at the classic (B = 8,
+     W = 8) and the pipelined (B = 16, W = 16, idle slots) shapes;
   4. the classic path: LLMEngine serving 12 greedy requests on
      Llama-2-7B at full width and depth with random bf16 weights, every
      decode step a CUDA-graph replay, with every kernel's launch count
-     read around that run (every forward through the Hopper kernel);
+     read around that run (every forward through the Hopper kernel;
+     one rotating row write and one paged decode per layer and step, the
+     plain row write never);
   5. the engine's prefill and decode rates, the card's busy share and
      busiest kernels over an admission step and a few decode steps
      (torch.profiler), and each kernel's time at the
      main path's shapes beside its bound, its plain version's time and
      one PyTorch call computing the same function where one exists; the
-     card's per-launch floor (a one-element add_) beside the row write;
+     card's per-launch floor (a one-element add_) beside the row
+     writes; the rotating row write at B = 8 and 16 also beside the
+     sequence it replaced (two apply_rope and the row-write kernel);
   5b. the pipelined path (`[pipelined]`): LLMEngine(multi_step=16,
      pipeline_depth=2, packed_admit=True, page 128, 192 pages, 16 slots)
      on the same weights, 16 requests of 100-1,000 tokens (two sharing a
@@ -32,7 +39,9 @@ Phases, each of which raises (exit code != 0) if it fails:
      tokens each, with launch counts through replays, graph captures,
      decode and wave-prefill rates; `[graph]`: one decode_step (B = 8)
      and one 16-step chunk (B = 16) eager against replay, and the card's
-     busy share of a replayed chunk; at bf16 the share of pipelined
+     busy share of a replayed chunk; the chunk replayed before (captured
+     with the unfused rotary embedding and row write) and after, timed in
+     turns, with its launches by kind; at bf16 the share of pipelined
      streams equal to the classic engine's and a speculative run's
      drafted / accepted counts (reported, not gated);
   6. the kernel path against the plain path, teacher-forced: bf16 at
@@ -121,6 +130,11 @@ KERNELS = {
     "row_write": dict(
         kernel=tpa.ROW_WRITE, source="ray_tpu_torch/csrc/row_write.cu",
         replaces="ray_tpu/ops/paged_attention.py:414"),
+    # The row write folded into the decode step's rotary embedding: the
+    # decode path's kernel; row_write above keeps write_token_rows.
+    "rope_row_write": dict(
+        kernel=tpa.ROPE_ROW_WRITE, source="ray_tpu_torch/csrc/row_write.cu",
+        replaces="ray_tpu/ops/paged_attention.py:414"),
     "flash_fwd": dict(
         kernel=tat.FLASH_FWD, source="ray_tpu_torch/csrc/flash_fwd.cu",
         replaces="ray_tpu/ops/attention.py:92"),
@@ -147,7 +161,8 @@ KERNELS = {
 }
 # The kernels each main path runs (flash_fwd_sm90 runs on both), and the
 # older variants that must not run there (both paths are bf16, d = 128).
-SERVE_KERNELS = ("paged_decode_attention", "row_write", "flash_fwd_sm90")
+SERVE_KERNELS = ("paged_decode_attention", "rope_row_write",
+                 "flash_fwd_sm90")
 TRAIN_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 REPLACED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SM90_KERNELS = {"flash_fwd_sm90": "flash_fwd_sm90_kernel",
@@ -178,6 +193,7 @@ PROFILE_GROUPS = [
     ("matmul (cuBLAS)", r"nvjet|gemm|cutlass|sm90_xmma"),
     ("copy / cast", r"copy|CatArrayBatched"),
     ("reduction", r"reduce_kernel"),
+    ("gather", r"gather|index_elementwise"),
     ("elementwise", r"elementwise|index"),
 ]
 # Packed-wave views [nseg, seg_len] of the pipelined run's waves.
@@ -239,7 +255,7 @@ def plain_ops():
     """Route the decoding module's kernel entry points to the kernels'
     plain PyTorch versions, for the plain side of a comparison."""
     saved = (tdec.flash_attention, tdec.paged_attention,
-             tdec.write_token_rows)
+             tdec.rope_write_token_rows)
 
     def flash_plain(q, k, v, causal=True):
         return tat.flash_attention_chunk_plain(
@@ -247,12 +263,38 @@ def plain_ops():
 
     tdec.flash_attention = flash_plain
     tdec.paged_attention = tpa.paged_attention_plain
-    tdec.write_token_rows = tpa.write_token_rows_plain
+    tdec.rope_write_token_rows = tpa.rope_write_token_rows_plain
     try:
         yield
     finally:
         (tdec.flash_attention, tdec.paged_attention,
-         tdec.write_token_rows) = saved
+         tdec.rope_write_token_rows) = saved
+
+
+def unfused_rope_row_write(q, k, v, cos, sin, k_pages, v_pages,
+                           block_tables, positions):
+    """What a decode layer ran before the rotating row write existed:
+    apply_rope on q and on k at max(pos, 0), then the row-write kernel
+    (about 22 launches).  The [time] and [graph] phases time it beside
+    the rotating row write."""
+    safe = positions.clamp_min(0)[:, None]
+    q = ttf.apply_rope(q[:, None], cos, sin, safe)[:, 0]
+    k = ttf.apply_rope(k[:, None], cos, sin, safe)[:, 0]
+    tpa.write_token_rows(k_pages, v_pages, k, v, block_tables, positions)
+    return q
+
+
+@contextlib.contextmanager
+def unfused_decode():
+    """Route the decoding module's rotating row write to the sequence it
+    replaced (on the card: PyTorch's kernels and the row-write kernel),
+    for a before/after comparison in one run."""
+    saved = tdec.rope_write_token_rows
+    tdec.rope_write_token_rows = unfused_rope_row_write
+    try:
+        yield
+    finally:
+        tdec.rope_write_token_rows = saved
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +426,30 @@ def check_paged_decode(gen, tag, dtype, dev, s, B, W, ctx_list):
     return err, kp, vp, tables, ctx
 
 
+def check_rope_row_write(gen, tag, dtype, dev, s, kp, vp, tables, pos):
+    """The rotating row write against its plain version on fresh q, k, v
+    at positions `pos` (< 0: idle): the rotated q and every page but the
+    scratch page must be bit-exact.  Writes into kp, vp."""
+    H, KVH, D = s["H"], s["KVH"], s["D"]
+    B = pos.shape[0]
+    cos, sin = tdec.rope_tables(TransformerConfig.llama2_7b(), dev)
+    q = rand(gen, (B, H, D), dtype, dev)
+    k = rand(gen, (B, KVH, D), dtype, dev)
+    v = rand(gen, (B, KVH, D), dtype, dev)
+    k2, v2 = kp.clone(), vp.clone()
+    got = tpa.rope_write_token_rows(q, k, v, cos, sin, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    want = tpa.rope_write_token_rows_plain(q, k, v, cos, sin, k2, v2,
+                                           tables, pos)
+    exact = (torch.equal(got, want) and torch.equal(kp[:-1], k2[:-1])
+             and torch.equal(vp[:-1], v2[:-1]))
+    print(f"[kernel] rope_row_write {tag} B={B} W={tables.shape[1]} "
+          f"positions {int(pos.min())}..{int(pos.max())} "
+          f"({int((pos < 0).sum())} idle): rotated q and pages bit-exact "
+          f"outside the scratch page: {exact} (tolerance: bit-exact)")
+    check(exact, "rotating row write differs from its plain version")
+
+
 def check_packed_wave(gen, tag, dtype, dev, s, nseg, seg_len):
     """The flash forward as a packed wave calls it: causal on the
     [nseg, seg_len] view, each segment a valid prefix of ragged length
@@ -425,6 +491,9 @@ def phase_kernels(dev):
     returns the largest bf16 error per kernel at the main path's
     (Llama-2-7B) shapes (0 for the row write, which must be bit-exact)."""
     gen = torch.Generator(device=dev).manual_seed(1)
+    # The rotating row write draws its q, k, v from a generator of its
+    # own, so that the other checks keep their inputs.
+    gen_rope = torch.Generator(device=dev).manual_seed(7)
     worst = {k: 0.0 for k in KERNELS}
     for shape_name, s in SHAPES.items():
         H, KVH, D, page = s["H"], s["KVH"], s["D"], s["page"]
@@ -438,12 +507,20 @@ def phase_kernels(dev):
             err, kp, vp, tables, ctx = check_paged_decode(
                 gen, tag, dtype, dev, s, B, 8,
                 [0, 1, 127, 128, 129, 500, 777, 1024])
-            err16 = check_paged_decode(
+            err16, kp16, vp16, tables16, ctx16 = check_paged_decode(
                 gen, tag, dtype, dev, s, 16, 16,
                 [0, 1, 100, 127, 128, 129, 255, 256, 257, 500, 640, 777,
-                 0, 1000, 1100, 1128])[0]
+                 0, 1000, 1100, 1128])
             if main:
                 worst["paged_decode_attention"] = max(err, err16)
+            # Rotating row write, bit-exact: the classic shape (one
+            # dropped row) and the pipelined one (idle slots, pos = -1).
+            pos = ctx.clone() - 1
+            pos[3] = -1
+            check_rope_row_write(gen_rope, tag, dtype, dev, s, kp, vp,
+                                 tables, pos)
+            check_rope_row_write(gen_rope, tag, dtype, dev, s, kp16, vp16,
+                                 tables16, ctx16 - 1)
             # Row write, one dropped row: bit-exact but for page P-1.
             kn = rand(gen, (B, KVH, D), dtype, dev)
             vn = rand(gen, (B, KVH, D), dtype, dev)
@@ -487,6 +564,21 @@ def phase_kernels(dev):
                     worst["flash_fwd_sm90"] = max(worst["flash_fwd_sm90"],
                                                   err_w)
     return worst
+
+
+def check_decode_launches(launches, cfg, phase):
+    """Every decode step (eager, replayed, or a step of a chunk) runs one
+    rotating row write and one paged decode per layer, and the plain row
+    write never."""
+    rope, paged = launches["rope_row_write"], launches["paged_decode_attention"]
+    check(launches["row_write"] == 0,
+          f"{phase} the plain row write ran on the decode path")
+    check(rope == paged and rope % cfg.num_layers == 0,
+          f"{phase} {rope} rotating row writes for {paged} paged decodes "
+          f"({cfg.num_layers} layers): not one each per layer and step")
+    print(f"{phase} rotating row write: {rope} launches = "
+          f"{rope // cfg.num_layers} decode steps x {cfg.num_layers} layers "
+          f"(one per layer and step, as paged decode); row_write 0")
 
 
 def make_prompts(rng, lens, prefix_len, prefixed):
@@ -556,6 +648,7 @@ def phase_main_path(dev, params, cfg):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched on the main path")
+    check_decode_launches(launches, cfg, "[main]")
     for name in REPLACED:  # every forward is bf16 at d = 128
         check(launches[name] == 0,
               f"{name} ran on the main path beside its Hopper kernel")
@@ -651,14 +744,20 @@ def profiled(fn, calls, label, smi):
     print(f"[profile] {label} on {smi} (profiler on): "
           f"{wall / calls * 1e3:.2f} ms per step, card busy "
           f"{busy / calls * 1e3:.2f} ms per step ({share})")
-    groups = {}
+    groups, counts = {}, {}
     for e in on_card:
         kind = next((g for g, pat in PROFILE_GROUPS if re.search(pat, e.key)),
                     "other")
         groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total
+        counts[kind] = counts.get(kind, 0) + e.count
     print("[profile]   by kind, ms per step: " + ", ".join(
         f"{g} {t / 1e3 / calls:.2f}" for g, t in sorted(
             groups.items(), key=lambda kv: -kv[1])))
+    print(f"[profile]   launches per step {sum(counts.values()) / calls:.0f}"
+          f", by kind: " + ", ".join(
+              f"{g} {n / calls:.0f}" for g, n in sorted(
+                  counts.items(), key=lambda kv: -kv[1])))
+    return counts
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.key[:70]}: "
               f"{e.self_device_time_total / 1e3 / calls:.3f} ms and "
@@ -731,6 +830,37 @@ def phase_timings(dev, eng, prompts, max_new, smi):
         bytes=4 * B * KD * 2 + B * 4 + B * W * 4, flops=0,
         shape=f"B={B} KD={KD} into [{L * P}, {page}, {KD}]")
 
+    # Rotating row write, at the classic batch and table width (the
+    # kernels line's row) and at the pipelined run's (B = 16 over 16-page
+    # tables, two idle slots), beside the sequence it replaced (two
+    # apply_rope and the row-write kernel, replayed like the kernel).
+    # Bytes: q, k and v read, q and the K and V rows written, the cos and
+    # sin rows of B positions and one table entry and position per row;
+    # operations: 4 products and 2 sums per rotated pair, in fp32.
+    cos, sin = tdec.rope_tables(cfg, dev)
+    pipe_ctx = [0, 1, 100, 127, 128, 129, 255, 256, 257, 500, 640, 777,
+                0, 1000, 1100, 1128]
+    tables16 = torch.randperm(L * P - 1, generator=gen, device=dev)[
+        :16 * 16].reshape(16, 16).int()
+    pos16 = torch.tensor(pipe_ctx, dtype=torch.int32, device=dev) - 1
+    for name, rb, rtables, rpos in (("rope_row_write", B, tables, pos),
+                                    ("rope_row_write B=16", 16, tables16,
+                                     pos16)):
+        rq = rand(gen, (rb, H, D), bf, dev)
+        rk = rand(gen, (rb, KVH, D), bf, dev)
+        rv = rand(gen, (rb, KVH, D), bf, dev)
+        args = (rq, rk, rv, cos, sin, ck, cv, rtables, rpos)
+        cases[name] = dict(
+            kernel=lambda args=args: tpa.rope_write_token_rows(*args),
+            plain=lambda args=args: tpa.rope_write_token_rows_plain(*args),
+            replaced=lambda args=args: unfused_rope_row_write(*args),
+            library=None, n=(200, 50),
+            bytes=(2 * rb * H * D + 4 * rb * KD) * 2 + rb * D * 4 + rb * 8,
+            flops=6 * rb * (H + KVH) * (D // 2), peak=PEAK_FLOPS[torch.float32],
+            shape=f"B={rb} H={H} KVH={KVH} D={D} W={rtables.shape[1]} "
+            f"positions {int(rpos.min())}..{int(rpos.max())} into "
+            f"[{L * P}, {page}, {KD}]")
+
     # Flash forward: the main path's 1024-token prefill bucket.
     b = sum(1 for p in prompts[:8] if 512 < len(p) <= 1024)
     b, s = 1 << (b - 1).bit_length(), 1024
@@ -760,11 +890,13 @@ def phase_timings(dev, eng, prompts, max_new, smi):
         plain_ms, plain_eager = time_ms(c["plain"], n_plain)
         lib = time_ms(c["library"], n_kernel) if c["library"] else None
         t_bytes = c["bytes"] / HBM_BYTES_S * 1e3
-        t_ops = c["flops"] / PEAK_FLOPS[bf] * 1e3
+        t_ops = c["flops"] / c.get("peak", PEAK_FLOPS[bf]) * 1e3
         out[name] = r = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib and lib[0],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if "replaced" in c:
+            r["replaced_ms"], rep_eager = time_ms(c["replaced"], n_plain)
         lib_text = ("none (no single PyTorch call)" if lib is None
                     else f"{lib[0]:.4f} ms (eager {lib[1]:.4f})")
         extra = ""
@@ -772,6 +904,10 @@ def phase_timings(dev, eng, prompts, max_new, smi):
             extra = f", {c['flops'] / ms / 1e9:.1f} TFLOP/s"
         if "pr2" in c:
             extra += f", PR 2 kernel {PR2_MS[c['pr2']]:.4f} ms (PERF.md)"
+        if "replaced" in c:
+            extra += (f", the sequence it replaced (2 x apply_rope + "
+                      f"row_write) {r['replaced_ms']:.4f} ms (eager "
+                      f"{rep_eager:.4f}), {r['replaced_ms'] / ms:.2f}x")
         print(f"[time] {name} [{c['shape']}] on {smi}: device {ms:.4f} ms "
               f"(eager, host included: {eager:.4f}{extra}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -783,8 +919,10 @@ def phase_timings(dev, eng, prompts, max_new, smi):
     floor_ms, floor_eager = time_ms(lambda: one.add_(1.0), 200)
     print(f"[time] launch floor [one-element in-place add_] on {smi}: "
           f"device {floor_ms:.4f} ms per launch (eager, host included: "
-          f"{floor_eager:.4f}); row_write {out['row_write']['ms']:.4f} ms is "
-          f"{out['row_write']['ms'] / floor_ms:.2f}x the floor")
+          f"{floor_eager:.4f}); " + "; ".join(
+              f"{k} {out[k]['ms']:.4f} ms is {out[k]['ms'] / floor_ms:.2f}x "
+              f"the floor" for k in ("row_write", "rope_row_write",
+                                     "rope_row_write B=16")))
     return out
 
 
@@ -904,6 +1042,7 @@ def phase_pipelined(dev, params, cfg, smi):
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} never launched in the pipelined run")
+    check_decode_launches(launches, cfg, "[pipelined]")
     for name in REPLACED:
         check(launches[name] == 0,
               f"{name} ran in the pipelined run beside its Hopper kernel")
@@ -1014,8 +1153,54 @@ def phase_graph_timings(main_eng, pipe_eng, smi):
           f"{chunk_replay:.1f} ({chunk_eager / chunk_replay:.2f}x); per "
           f"step {chunk_replay / n:.2f} ms replayed, "
           f"{16 * n / chunk_replay * 1e3:.0f} tok/s at 16 slots")
-    profiled(lambda: chunk(True), 3,
-             f"replayed {n}-step chunk at 16 active requests", smi)
+    calls = 3
+    after = profiled(lambda: chunk(True), calls,
+                     f"replayed {n}-step chunk at 16 active requests", smi)
+
+    # Before and after in one run: the same chunk captured with the
+    # decode layers' sequence before the rotating row write (two
+    # apply_rope and the row-write kernel), replays timed in turns.
+    old = tdg.DecodeGraphs(g16.params, g16.cache, g16.config,
+                           g16.state.shape[1], g16.max_pages_per_seq,
+                           g16.device)
+    old.tables.copy_(g16.tables)
+
+    def old_chunk():
+        old.state.copy_(snap16)
+        return old.multi_step(W16, n)
+
+    with unfused_decode():
+        old_chunk()  # captured with the unfused sequence
+    before_ms = [host_ms(old_chunk, 5)]
+    after_ms = [host_ms(lambda: chunk(True), 5)]
+    before_ms.append(host_ms(old_chunk, 5))
+    print(f"[graph] {n}-step chunk B=16 W={W16} replayed on {smi}, before "
+          f"(2 x apply_rope + row_write per layer) / after (rope_row_write)"
+          f", host ms in turns: after {chunk_replay:.1f}, before "
+          f"{before_ms[0]:.1f}, after {after_ms[0]:.1f}, before "
+          f"{before_ms[1]:.1f}; per step before {np.mean(before_ms) / n:.2f}"
+          f", after {np.mean([chunk_replay] + after_ms) / n:.2f} ms")
+    before = profiled(old_chunk, calls, f"replayed {n}-step chunk at 16 "
+                      f"active requests, before (unfused rope + row_write)",
+                      smi)
+    print(f"[profile] launches per replayed {n}-step chunk by kind, before "
+          f"-> after: " + ", ".join(
+              f"{k} {before.get(k, 0) // calls} -> {after.get(k, 0) // calls}"
+              for k in sorted(set(before) | set(after),
+                              key=lambda k: -before.get(k, 0)))
+          + f"; all {sum(before.values()) // calls} -> "
+          f"{sum(after.values()) // calls}")
+    L = g16.config.num_layers
+    per = {k: (before.get(k, 0) - after.get(k, 0)) / calls / (L * n)
+           for k in ("gather", "elementwise", "copy / cast")}
+    fewer = (sum(before.values()) - sum(after.values())) / calls / (L * n)
+    print(f"[profile] per layer and step, launches fell by {fewer:.2f} "
+          f"(gathers {per['gather']:.2f}, elementwise "
+          f"{per['elementwise']:.2f}, copy / cast {per['copy / cast']:.2f})")
+    # The rotary embedding's ~25 launches per layer and step became one.
+    check(fewer >= 15, "the rotary embedding's launches did not leave the "
+          "replayed chunk")
+    del old
 
 
 def replay_equals_eager(dev, cfg, params):
@@ -1590,10 +1775,11 @@ def main() -> int:
     kernels = []
     for kname, spec in KERNELS.items():
         r = timings[kname]
-        # flash_fwd runs on both paths: its count here is the pipelined
-        # serving run's (replays counted); [main] and [train] print theirs.
-        launches = (launches_serve[kname] if kname in SERVE_KERNELS
-                    else train_launches[kname])
+        # flash_fwd_sm90 runs on both paths: its count here is the
+        # pipelined serving run's (replays counted); [main] and [train]
+        # print theirs.  row_write: the pipelined run's, 0.
+        launches = (train_launches[kname] if kname in train_launches
+                    and kname not in SERVE_KERNELS else launches_serve[kname])
         kernels.append({
             "name": kname, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches,

@@ -33,8 +33,10 @@ them and rebuilds nothing (models/decode_graph.py).
 Numerics mirror models/transformer.py `forward` (same rms_norm / rope /
 projection order), so greedy decode reproduces the full forward's argmax
 token for token.  On a CUDA device prefill attention runs the flash
-kernel and decode the paged-attention and row-write kernels; on the CPU
-prefill attention is the dense masked softmax the reference runs off-TPU.
+kernel, and decode the rotating row-write kernel (rotary embedding and
+K/V row write, one launch per layer) and the paged-attention kernel; on
+the CPU prefill attention is the dense masked softmax the reference runs
+off-TPU.
 """
 
 from __future__ import annotations
@@ -57,8 +59,8 @@ from ray_tpu_torch.models.transformer import (
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import (
     paged_attention,
+    rope_write_token_rows,
     write_page_tokens,
-    write_token_rows,
 )
 
 Cache = Dict[str, torch.Tensor]
@@ -108,14 +110,22 @@ def _flat_cache(cache: Cache) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
             L, P)
 
 
-def _project_qkv(x, bp, positions, cos, sin, c: TransformerConfig):
-    """Shared prefill/decode Q/K/V computation ([B, S, ...])."""
+def _project(x, bp, c: TransformerConfig):
+    """Q/K/V projections ([B, S, heads, hd]), not yet rotated."""
     b, s, _ = x.shape
     hd = c.head_dim_
     y = rms_norm(x, bp["attn_norm"], c.rms_eps)
     q = (y @ bp["wq"].to(c.dtype)).reshape(b, s, c.num_heads, hd)
     k = (y @ bp["wk"].to(c.dtype)).reshape(b, s, c.num_kv_heads, hd)
     v = (y @ bp["wv"].to(c.dtype)).reshape(b, s, c.num_kv_heads, hd)
+    return q, k, v
+
+
+def _project_qkv(x, bp, positions, cos, sin, c: TransformerConfig):
+    """Shared prefill Q/K/V computation ([B, S, ...]): the projections,
+    q and k rotated at max(position, 0).  Decode rotates inside the row
+    write instead (`_decode_one`)."""
+    q, k, v = _project(x, bp, c)
     safe_pos = positions.clamp_min(0)
     q = apply_rope(q, cos, sin, safe_pos)
     k = apply_rope(k, cos, sin, safe_pos)
@@ -256,14 +266,15 @@ def _decode_one(params, tokens, cache: Cache, block_tables, positions,
     B = tokens.shape[0]
     x, cos, sin = _start(c, tokens, params)
     x = x[:, None, :]                                            # [B,1,h]
-    pos2d = positions[:, None]
     ck, cv, L, P = _flat_cache(cache)
     for l in range(c.num_layers):
         bp = _layer_params(params, l)
-        q, k, v = _project_qkv(x, bp, pos2d, cos, sin, c)
+        q, k, v = _project(x, bp, c)
         tables_l = block_tables + l * P
-        write_token_rows(ck, cv, k[:, 0], v[:, 0], tables_l, positions)
-        attn = paged_attention(q[:, 0], ck, cv, tables_l, context_lens)
+        # Rotary embedding of q and k and the K/V row write: one kernel.
+        q = rope_write_token_rows(q[:, 0], k[:, 0], v[:, 0], cos, sin, ck,
+                                  cv, tables_l, positions)
+        attn = paged_attention(q, ck, cv, tables_l, context_lens)
         x = x + attn.reshape(B, 1, -1) @ bp["wo"].to(c.dtype)
         x = _mlp(x, bp, c)
     return _lm_head(x[:, 0], params, c), cache

@@ -167,8 +167,8 @@ def flash_attention_chunk_plain(q, k, v, q_off: int, kv_off: int,
     else:
         visible = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     s = s.masked_fill(~visible, _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True) if sk else torch.full_like(
-        s[..., :1], _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True) if sk else torch.full(
+        (*s.shape[:-1], 1), _NEG_INF, device=q.device)
     p = torch.exp(s - m).masked_fill(~visible, 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)          # [b,h,sq,1]
     out = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),

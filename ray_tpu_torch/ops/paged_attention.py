@@ -13,7 +13,11 @@ plain PyTorch version of the same function beside it:
   - `paged_attention`: one query token per sequence against its pages
     (csrc/paged_decode.cu; plain: `paged_attention_plain`);
   - `write_token_rows`: the new token's K/V row written in place
-    (csrc/row_write.cu; plain: `write_token_rows_plain`).
+    (csrc/row_write.cu; plain: `write_token_rows_plain`);
+  - `rope_write_token_rows`: the same write folded into the decode
+    step's rotary embedding, one launch per layer that rotates q and k
+    and writes the K and V rows (csrc/row_write.cu, the decode path's
+    kernel; plain: `rope_write_token_rows_plain`).
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `write_page_tokens` (prefill)
@@ -49,6 +53,12 @@ ROW_WRITE = Kernel(
     "row_write", "row_write",
     [_c_p, _c_p, _c_p, _c_p, _c_p, _c_p, _c_int, _c_int, _c_int, _c_int,
      _c_ll, _c_int])
+ROPE_ROW_WRITE = Kernel(
+    "row_write", "rope_row_write",
+    [_c_p] * 10 + [_c_int] * 7 + [_c_ll, _c_int, _c_int])
+# Half of the widest head the rotating row write takes (csrc/row_write.cu
+# kMaxHalf: the cos/sin row it keeps in shared memory).
+ROPE_MAX_HALF = 256
 
 
 def _check_rows(k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
@@ -250,6 +260,86 @@ def write_token_rows_plain(k_pages, v_pages, k_new, v_new, block_tables,
     k_pages.index_put_((pages, offs), k_new.reshape(B, -1))
     v_pages.index_put_((pages, offs), v_new.reshape(B, -1))
     return k_pages, v_pages
+
+
+def rope_write_token_rows(q, k, v, cos, sin, k_pages, v_pages,
+                          block_tables, positions) -> torch.Tensor:
+    """A decode layer's rotary embedding and row write, in one call.
+
+    q: [B, H, D] and k, v: [B, KVH, D], the new token's projections, not
+    yet rotated; cos, sin: fp32 [max_len, D // 2] rotary tables;
+    k_pages / v_pages, block_tables, positions as in `write_token_rows`.
+    Rotates q and k at position max(pos, 0) as models/transformer.py
+    `apply_rope` does (halves paired, fp32 products, one rounding to the
+    working dtype), writes the rotated K row and the V row in place as
+    `write_token_rows` does (pos < 0 to the scratch page FP-1, offset 0)
+    and returns the rotated q, a new [B, H, D] tensor."""
+    if k_pages.is_cuda:
+        return _rope_write_token_rows_cuda(q, k, v, cos, sin, k_pages,
+                                           v_pages, block_tables, positions)
+    return rope_write_token_rows_plain(q, k, v, cos, sin, k_pages, v_pages,
+                                       block_tables, positions)
+
+
+def _rope_write_token_rows_cuda(q, k, v, cos, sin, k_pages, v_pages,
+                                block_tables, positions):
+    _check_rows(k_pages, v_pages)
+    FP, page, KD = k_pages.shape
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must "
+                         f"be [B, heads, D]")
+    B, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2] != D \
+            or k[0].numel() != KD:
+        raise ValueError(f"k/v {tuple(k.shape)} do not hold one row of "
+                         f"{KD} per sequence in heads of {D}")
+    if D % 2 or D // 2 > ROPE_MAX_HALF:
+        raise ValueError(f"rotating row write takes an even head_dim <= "
+                         f"{2 * ROPE_MAX_HALF}, got {D}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32 \
+            or cos.dim() != 2 or cos.shape != sin.shape \
+            or cos.shape[1] != D // 2:
+        raise ValueError(f"cos/sin must be float32 [max_len, {D // 2}]")
+    code = dtype_code(q, k, v, k_pages, v_pages)
+    W = block_tables.shape[1]
+    if W < 1 or block_tables.shape[0] != B or positions.shape != (B,):
+        raise ValueError("block_tables must be [B, W >= 1] and positions [B]")
+    dev = k_pages.device
+    if any(t.device != dev for t in (q, k, v, cos, sin, v_pages)):
+        raise ValueError(f"every tensor must be on {dev}")
+    q, k, v, cos, sin = (t.contiguous() for t in (q, k, v, cos, sin))
+    tables = _i32(block_tables, dev)
+    pos = _i32(positions, dev)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    ROPE_ROW_WRITE.launch(
+        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        out.data_ptr(), tables.data_ptr(), pos.data_ptr(), B, H, KD // D,
+        D, W, page, FP, k_pages.stride(0), cos.shape[0], code)
+    return out
+
+
+def _rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+            ) -> torch.Tensor:
+    """x [B, heads, D] rotated by per-sequence rows c, s [B, D // 2]:
+    models/transformer.py `apply_rope`'s arithmetic (ops/ may not import
+    models/; a test pins the two together)."""
+    c, s = c[:, None, :], s[:, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def rope_write_token_rows_plain(q, k, v, cos, sin, k_pages, v_pages,
+                                block_tables, positions) -> torch.Tensor:
+    """The plain PyTorch version of the rotating row write: the rotation
+    of q and k at max(pos, 0), then `write_token_rows_plain`."""
+    p = positions.long().clamp_min(0)
+    c, s = cos[p], sin[p]
+    write_token_rows_plain(k_pages, v_pages, _rotate(k, c, s), v,
+                           block_tables, positions)
+    return _rotate(q, c, s)
 
 
 # ---------------------------------------------------------------------------

@@ -1076,9 +1076,25 @@ class LLMEngine:
         self._dirty_slots.clear()
 
     def _inflight_tokens(self, slot: int) -> int:
-        """Upper bound on tokens already dispatched for a slot in
-        records not yet reconciled."""
-        return sum(ch["planned"].get(slot, 0) for ch in self._inflight)
+        """Upper bound on tokens already dispatched for the slot's
+        current request in records not yet reconciled.
+
+        The port departs from the reference's code here, which has the
+        same fault: it sums `planned[slot]` over every record, so after
+        an abort the records dispatched for the aborted request count
+        against the slot's next occupant, which is then left out of
+        later chunks and never finishes.  A record counts only where its
+        snapshot (a wave: its segments) holds the current request."""
+        req = self.slot_req[slot]
+        total = 0
+        for ch in self._inflight:
+            if ch.get("type") == "prefill":
+                held = any(r is req for r in ch["segs"])
+            else:
+                held = ch["snapshot"].get(slot) is req
+            if held:
+                total += ch["planned"].get(slot, 0)
+        return total
 
     def _table_width(self, max_pos: int) -> int:
         """Pow-2 bucket of the table width that covers positions below

@@ -93,6 +93,24 @@ def test_flash_chunk_noncausal_with_offsets_matches_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_chunk_without_keys_gives_the_sentinels(dtype, causal):
+    """sk = 0: every row sees no key, so out is 0 and lse is -1e30, the
+    values the card kernel writes (tests/test_torch_cuda.py
+    test_sm90_forward_matches_plain[no_keys-*]).  The reference raises on
+    an empty key block, so this edge is held to the kernel's sentinels."""
+    q, k, v = _qkv(9, 1, 33, 0, 2, 64)
+    qt, kt, vt = (x.to(dtype) for x in _t(q, k, v))
+    for out, lse in (tat.flash_attention_chunk_plain(qt, kt, vt, 0, 0,
+                                                     causal),
+                     tat.flash_attention_chunk(qt, kt, vt, 0, 0, causal)):
+        assert out.shape == (1, 33, 2, 64) and out.dtype == dtype
+        assert lse.shape == (2, 33) and lse.dtype == torch.float32
+        assert torch.all(out == 0)
+        assert torch.all(lse == tat._NEG_INF)
+
+
 def test_flash_gqa_heads_match_expanded_jax():
     """K/V with fewer heads than q (read without expanding) equal the
     reference run on heads expanded first, as the model expands them."""

@@ -145,6 +145,76 @@ def test_row_write_bit_exact(cuda, dtype, B, KVH, D, page):
     assert torch.equal(kp[:-1], k2[:-1]) and torch.equal(vp[:-1], v2[:-1])
 
 
+ROPE_CASES = {
+    # name: (B, H, KVH, D, page, W); 16-byte vectors unless noted.
+    "gqa_prime": (7, 4, 2, 16, 4, 3),
+    "narrow": (5, 4, 2, 8, 4, 3),        # bf16 halves of 8 bytes: scalar
+    "odd_half": (3, 2, 1, 6, 4, 2),      # D / 2 = 3: scalar in both dtypes
+    "llama_classic": (8, 32, 32, 128, 128, 8),
+    "llama_pipelined": (16, 32, 32, 128, 128, 16),
+    "gqa_serve": (11, 16, 4, 128, 16, 6),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ROPE_CASES))
+def test_rope_row_write_bit_exact(cuda, dtype, case):
+    """The rotating row write against its plain version, bit for bit:
+    the rotated q, and every page but the scratch page FP-1 (where the
+    rows with pos = -1 race).  Idle rows (pos = -1) and one row past its
+    table (clamped to the last column) included."""
+    B, H, KVH, D, page, W = ROPE_CASES[case]
+    rng = np.random.default_rng(B * D)
+    FP, max_len = W * B + 2, W * page + 8
+    cos, sin = (t.to(cuda) for t in ttf.rope_freqs(D, max_len, 10000.0,
+                                                   device="cpu"))
+    q = _rand(rng, (B, H, D), dtype, cuda)
+    k = _rand(rng, (B, KVH, D), dtype, cuda)
+    v = _rand(rng, (B, KVH, D), dtype, cuda)
+    kp = _rand(rng, (FP, page, KVH * D), dtype, cuda)
+    vp = _rand(rng, (FP, page, KVH * D), dtype, cuda)
+    tables = torch.from_numpy(rng.permutation(FP - 1)[:B * W].reshape(
+        B, W).astype(np.int32)).to(cuda)
+    pos = rng.integers(0, W * page, size=B).astype(np.int32)
+    pos[1] = -1
+    pos[-1] = W * page + 3  # past the table
+    if B > 8:
+        pos[5] = -1
+    pos = torch.from_numpy(pos).to(cuda)
+    k2, v2 = kp.clone(), vp.clone()
+    before = tpa.ROPE_ROW_WRITE.launches
+    got = tpa.rope_write_token_rows(q, k, v, cos, sin, kp, vp, tables, pos)
+    assert tpa.ROPE_ROW_WRITE.launches == before + 1
+    want = tpa.rope_write_token_rows_plain(q, k, v, cos, sin, k2, v2,
+                                           tables, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(kp[:-1], k2[:-1]) and torch.equal(vp[:-1], v2[:-1])
+
+
+def test_captured_decode_replays_the_rotating_row_write(cuda):
+    """A captured decode step replays the rotating row write, once per
+    layer, and never the plain row write; the replay waits on nothing
+    (sync debug mode "error"), and equals the eager step."""
+    graphs, cache = _graph_setup(cuda, torch.bfloat16)
+    snap = _snapshot(graphs, cache)
+    graphs.decode_step(8)  # warm-up, capture (synchronizes), replay
+    _restore(graphs, cache, snap)
+    kernels = (tpa.ROPE_ROW_WRITE, tpa.ROW_WRITE, tpa.PAGED_DECODE)
+    before = [k.launches for k in kernels]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed = graphs.decode_step(8).clone()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 0, 2]
+    _restore(graphs, cache, snap)
+    eager = graphs._step(graphs.state, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+
+
 FLASH_CASES = {
     # name: (b, sq, sk, h, hk, d, q_off, kv_off, causal)
     "causal": (2, 64, 64, 4, 4, 64, 0, 0, True),
@@ -213,7 +283,8 @@ def test_engine_on_cuda_matches_cpu(cuda):
     prompts += [prefix + [1, 2], prefix + [3]]
     kw = dict(page_size=4, num_pages=48, max_batch=2)
     want = tse.LLMEngine(cfg, params, device="cpu", **kw).generate(prompts, 7)
-    kernels = ((tpa.PAGED_DECODE,), (tpa.ROW_WRITE,), tat.FLASH_FWD_KERNELS)
+    kernels = ((tpa.PAGED_DECODE,), (tpa.ROPE_ROW_WRITE,),
+               tat.FLASH_FWD_KERNELS)
     before = [_launches(k) for k in kernels]
     eng = tse.LLMEngine(cfg, params, device=cuda, **kw)
     got = eng.generate(prompts, 7)
@@ -661,7 +732,7 @@ def test_replay_counts_each_kernel_launch(cuda):
     call (warm-up, capture, replay), n replays count n x the launches of
     one eager call, and the capture alone counts none."""
     graphs, _ = _graph_setup(cuda, torch.bfloat16)
-    kernels = (tpa.PAGED_DECODE, tpa.ROW_WRITE)
+    kernels = (tpa.PAGED_DECODE, tpa.ROPE_ROW_WRITE)
     before = [k.launches for k in kernels]
     graphs._chunk(graphs.state.clone(), 8, 4, False)
     per_call = [k.launches - b for k, b in zip(kernels, before)]

@@ -171,3 +171,78 @@ def test_prefix_cache_eviction_under_pressure(setup):
                            max_new_tokens=4)[0]
         assert len(out) == 4
     assert eng.allocator.num_free + eng.prefix_cache.num_idle == 11
+
+
+def _engines(setup, **kw):
+    """A JAX engine and a port engine on the same params and settings."""
+    jc, jp, tc, tp, _ = setup
+    return (JaxEngine(jc, jp, **kw),
+            tse.LLMEngine(tc, tp, device="cpu", **kw))
+
+
+def test_engine_continuous_batching_matches_sequential(setup):
+    """test_llm_decoding.py test_engine_continuous_batching_matches_sequential:
+    a batch of 3 through 4 slots gives the JAX engine's streams and the
+    port's own one-at-a-time streams, and every page comes back."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 64, size=n).tolist() for n in (3, 5, 9)]
+    kw = dict(page_size=4, num_pages=64, max_batch=4)
+    jax_eng, eng = _engines(setup, **kw)
+    want = jax_eng.generate(prompts, max_new_tokens=5)
+    free0 = eng.allocator.num_free
+    got = eng.generate(prompts, max_new_tokens=5)
+    assert got == want and all(len(o) == 5 for o in got)
+    assert eng.allocator.num_free + eng.prefix_cache.num_idle == free0
+    solo = [_engines(setup, **{**kw, "max_batch": 1})[1].generate(
+        [p], max_new_tokens=5)[0] for p in prompts]
+    assert solo == want
+
+
+def test_engine_queueing_beyond_max_batch(setup):
+    """test_llm_decoding.py test_engine_queueing_beyond_max_batch: five
+    requests through two slots drain through continuous batching, each
+    with the JAX engine's stream."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 64, size=4).tolist() for _ in range(5)]
+    jax_eng, eng = _engines(setup, page_size=4, num_pages=64, max_batch=2)
+    want = jax_eng.generate(prompts, max_new_tokens=3)
+    got = eng.generate(prompts, max_new_tokens=3)
+    assert got == want and len(got) == 5
+    assert all(len(o) == 3 for o in got)
+
+
+def test_engine_rejects_overlong_prompt(setup):
+    """test_llm_decoding.py test_engine_rejects_overlong_prompt: both
+    engines refuse a prompt plus budget past max_seq_len at the door."""
+    for eng in _engines(setup, page_size=4, num_pages=64, max_batch=1):
+        with pytest.raises(ValueError, match="max_seq_len"):
+            eng.add_request(list(range(60)), max_new_tokens=10)
+        assert not eng.waiting
+
+
+def test_prefill_budget_interleaves_admission(setup):
+    """test_serve_admission.py test_prefill_budget_interleaves_admission:
+    with a per-step prefill budget of 8 tokens, three 8-token prompts
+    seat over several steps, without one in fewer; the port takes as
+    many steps as the JAX engine either way."""
+    prompts = [[i + 1, i + 2, i + 3, i + 4, i + 5, i + 6, i + 7, i + 8]
+               for i in (0, 10, 20)]
+
+    def steps_to_seat(eng):
+        for p in prompts:
+            eng.add_request(list(p), 32)
+        for n in range(1, 10):
+            eng.step()
+            if eng.num_active == 3:
+                return n
+        return 10
+
+    kw = dict(page_size=4, num_pages=64, max_batch=4,
+              enable_prefix_caching=False, queue_timeout_s=0)
+    steps = {}
+    for budget in (8, 0):
+        jax_eng, eng = _engines(setup, prefill_budget=budget, **kw)
+        steps[budget] = steps_to_seat(eng)
+        assert steps[budget] == steps_to_seat(jax_eng)
+    assert steps[8] >= 3
+    assert steps[0] < steps[8]

@@ -207,6 +207,30 @@ def test_abort_in_flight_reclaims_slot_and_pages(setup):
         KW["num_pages"] - 1
 
 
+def test_abort_then_reseat_finishes_the_new_request(setup):
+    """An abort with chunks in flight, then the freed slot seated anew:
+    the records dispatched for the aborted request do not count against
+    the new one's budget, so its stream has no holes, it finishes, the
+    engine goes idle and every usable page comes back."""
+    prompts = [[37, 48], [51, 18, 61, 58, 35, 14, 60]]
+    want = _jax(setup, page_size=8).generate(prompts, max_new_tokens=7)
+    eng = _port(setup, page_size=8, multi_step=4, pipeline_depth=2)
+    a = eng.add_request([11, 4], 10, eos_token=41)
+    eng.step()
+    eng.step()
+    ids = [eng.add_request(p, 7) for p in prompts]
+    assert eng.abort(a)
+    done = {}
+    for _ in range(200):
+        if not eng.has_work():
+            break
+        done.update(eng.step())
+    assert not eng.has_work()
+    assert [done.get(i) for i in ids] == want
+    assert eng.allocator.num_free + eng.prefix_cache.num_idle == \
+        KW["num_pages"] - 1
+
+
 # ---------------------------------------------------------------------------
 # Speculative decoding
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
-"""Which CUDA kernel the port's flash ops launch, and when a kernel rebuilds.
+"""Which CUDA kernel the port's ops launch, and when a kernel rebuilds.
 
-Both decisions are made on the host before any launch, so they are held
+These decisions are made on the host before any launch, so they are held
 here on the CPU: `flash_variant` maps dtype x head dim x alignment to the
 Hopper wgmma kernels, the older tensor-core kernels or the CUDA-core
-kernels, and `_build` rebuilds a library when its source or a shared
-`csrc/*.cuh` header is newer.
+kernels; a decode step launches the rotating row write and paged decode
+once per layer; and `_build` rebuilds a library when its source or a
+shared `csrc/*.cuh` header is newer.
 """
 
 import importlib
@@ -19,6 +20,9 @@ import torch
 # honours no allow-comment), and the package name is no metric.
 PORT = "ray_tpu" "_torch"
 tat = importlib.import_module(f"{PORT}.ops.attention")
+tpa = importlib.import_module(f"{PORT}.ops.paged_attention")
+tdec = importlib.import_module(f"{PORT}.models.decoding")
+ttf = importlib.import_module(f"{PORT}.models.transformer")
 build = importlib.import_module(f"{PORT}.ops._build")
 
 
@@ -93,6 +97,47 @@ def test_backward_wrappers_route_by_flash_variant(monkeypatch, op, dtype,
     hopper = sm90 is None and tat.flash_variant(dtype, head_dim,
                                                 True) == "sm90"
     assert launched == [kernels[1] if hopper else kernels[0]]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor, so that the
+    wrappers take their kernel branch (whose launch is recorded, not
+    run); what ops derive from it is one too."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _on_card(t):
+    return torch.Tensor._make_subclass(_OnCard, t)
+
+
+def test_decode_step_launches_the_rotating_row_write(monkeypatch):
+    """On CUDA tensors a decode step launches, per layer, the rotating
+    row write (rotary embedding and K/V row write) and paged decode, and
+    never the plain row write: the launches are recorded, not run."""
+    launched = []
+    monkeypatch.setattr(build.Kernel, "launch",
+                        lambda self, device, *args: launched.append(self))
+    cfg = ttf.TransformerConfig.tiny(
+        num_layers=3, num_heads=4, num_kv_heads=2, hidden_size=32,
+        intermediate_size=64, vocab_size=64, max_seq_len=64,
+        dtype=torch.float32)
+    params = ttf.init_params(cfg, seed=0, device="cpu")
+    params = {k: ({n: _on_card(t) for n, t in v.items()}
+                  if isinstance(v, dict) else _on_card(v))
+              for k, v in params.items()}
+    cache = {k: _on_card(t) for k, t in
+             tdec.init_kv_pages(cfg, 8, 4, device="cpu").items()}
+    tokens = _on_card(torch.tensor([3, 5], dtype=torch.int32))
+    tables = _on_card(torch.tensor([[0, 1], [2, 3]], dtype=torch.int32))
+    pos = _on_card(torch.tensor([4, -1], dtype=torch.int32))
+    assert tokens.is_cuda and cache["k"].is_cuda
+    tdec.decode_step(params, tokens, cache, tables, pos, pos + 1, cfg)
+    assert launched == [tpa.ROPE_ROW_WRITE, tpa.PAGED_DECODE] * 3
+    assert tpa.ROW_WRITE not in launched
+    assert tpa.ROPE_ROW_WRITE.source == tpa.ROW_WRITE.source == "row_write"
 
 
 @pytest.fixture

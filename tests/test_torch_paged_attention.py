@@ -3,7 +3,10 @@ on the CPU.
 
 JAX runs its Pallas decode kernel (`_gqa_decode_kernel`) in interpret
 mode and its row-write kernel (`_row_write_kernel`, always interpreted off
-a TPU); the port's CPU paths are the kernels' plain versions.
+a TPU); the port's CPU paths are the kernels' plain versions.  The port's
+rotating row write (rotary embedding of q and k plus the row write, one
+kernel on the card) is held against the JAX composite it replaces on the
+decode path: `apply_rope` on q and k, then `write_token_rows`.
 """
 
 import importlib
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu.models import transformer as jtf
 from ray_tpu.ops import paged_attention as jpa
 
 # The port's package name, assembled from two literals: raylint's metric
@@ -21,6 +25,7 @@ from ray_tpu.ops import paged_attention as jpa
 # honours no allow-comment), and the package name is no metric.
 PORT = "ray_tpu" "_torch"
 tpa = importlib.import_module(f"{PORT}.ops.paged_attention")
+ttf = importlib.import_module(f"{PORT}.models.transformer")
 
 
 def _rand(rng, *shape):
@@ -163,3 +168,136 @@ def test_write_page_tokens_pad_edges_match_jax(case):
     assert not np.array_equal(tk.numpy()[-1, 0], kp[-1, 0])
     if case == "all_pad":
         np.testing.assert_array_equal(tk.numpy()[:-1], kp[:-1])
+
+
+def test_paged_attention_prime_batch_matches_jax(monkeypatch):
+    """test_llm_decoding.py test_paged_attention_prime_batch_pads_not_degrades:
+    a prime batch (7) that the JAX kernel pads to a multiple of its
+    sequence block (RAY_TPU_PA_SB=4): every row, the empty one included,
+    matches JAX's and the float64 reference (atol 2e-3, as the reference
+    test holds its kernel)."""
+    monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("RAY_TPU_PA_SB", "4")
+    rng = np.random.default_rng(2)
+    B, H, KVH, D, P, page, W = 7, 4, 2, 128, 32, 8, 4
+    q = _rand(rng, B, H, D)
+    kp = _rand(rng, P, page, KVH * D)
+    vp = _rand(rng, P, page, KVH * D)
+    tables = rng.permutation(P)[:B * W].reshape(B, W).astype(np.int32)
+    ctx = np.array([5, 0, 31, 8, 1, 17, 3], dtype=np.int32)
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(ctx)))
+    got = tpa.paged_attention(*map(torch.from_numpy,
+                                   (q, kp, vp, tables, ctx))).numpy()
+    assert got.shape == want.shape == (B, H, D)
+    np.testing.assert_allclose(got, want, atol=2e-3)
+    np.testing.assert_allclose(
+        got, jpa.paged_attention_reference(q, kp, vp, tables, ctx),
+        atol=2e-3)
+    assert np.all(got[1] == 0) and np.all(want[1] == 0)
+
+
+def test_write_token_rows_prime_batch_matches_jax(monkeypatch):
+    """test_llm_decoding.py test_write_token_rows_prime_batch: B = 19
+    rows (the JAX kernel pads to a multiple of 16 with duplicate tail
+    strips), one dropped row; every page but the scratch page equals
+    JAX's bit for bit."""
+    monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(3)
+    B, KVH, D, P, page, W = 19, 2, 8, 64, 8, 3
+    kp = _rand(rng, P, page, KVH * D)
+    vp = _rand(rng, P, page, KVH * D)
+    kn = _rand(rng, B, KVH, D)
+    vn = _rand(rng, B, KVH, D)
+    tables = rng.permutation(P - 1)[:B * W].reshape(B, W).astype(np.int32)
+    pos = rng.integers(0, page * W, B).astype(np.int32)
+    pos[5] = -1
+    jk, jv = jpa.write_token_rows(jnp.asarray(kp), jnp.asarray(vp),
+                                  jnp.asarray(kn), jnp.asarray(vn),
+                                  jnp.asarray(tables), jnp.asarray(pos))
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tpa.write_token_rows(tk, tv, *map(torch.from_numpy,
+                                      (kn, vn, tables, pos)))
+    np.testing.assert_array_equal(tk.numpy()[:-1], np.asarray(jk)[:-1])
+    np.testing.assert_array_equal(tv.numpy()[:-1], np.asarray(jv)[:-1])
+    assert not np.array_equal(tk.numpy()[:-1], kp[:-1])
+
+
+# ---------------------------------------------------------------------------
+# The rotating row write (rotary embedding + row write)
+# ---------------------------------------------------------------------------
+
+def _as_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [7, 19])
+def test_rope_write_token_rows_bit_exact_vs_jax(monkeypatch, dtype, B):
+    """The plain rotating row write equals JAX's apply_rope on q and k at
+    max(pos, 0) followed by its row-write kernel (interpreted), bit for
+    bit: the rotated q, and every page but the scratch page FP-1.  Prime
+    batches, GQA heads, two rows with pos = -1 (rotated at position 0,
+    written to the scratch page) and one row past its table, which the
+    port clamps to the table's last column: JAX, whose gather does not
+    clamp, gets the table widened by repeats of that column."""
+    monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(B)
+    H, KVH, D, page, W, max_len = 4, 2, 16, 4, 3, 64
+    FP = B * W + 2
+    cos, sin = (t.numpy() for t in ttf.rope_freqs(D, max_len, 10000.0,
+                                                  device="cpu"))
+    q = _rand(rng, B, H, D)
+    k = _rand(rng, B, KVH, D)
+    v = _rand(rng, B, KVH, D)
+    kp = _rand(rng, FP, page, KVH * D)
+    vp = _rand(rng, FP, page, KVH * D)
+    tables = rng.permutation(FP - 1)[:B * W].reshape(B, W).astype(np.int32)
+    pos = rng.integers(0, W * page, size=B).astype(np.int32)
+    pos[1] = pos[4] = -1
+    pos[2] = W * page + 5  # past the table: its last column
+    wide = tables[:, np.minimum(np.arange(W + 2), W - 1)]
+
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv, jkp, jvp = (jnp.asarray(a).astype(jdt)
+                            for a in (q, k, v, kp, vp))
+    safe = jnp.asarray(np.maximum(pos, 0))[:, None]
+    jcos, jsin = jnp.asarray(cos), jnp.asarray(sin)
+    jq_rot = jtf.apply_rope(jq[:, None], jcos, jsin, safe)[:, 0]
+    jk_rot = jtf.apply_rope(jk[:, None], jcos, jsin, safe)[:, 0]
+    want_k, want_v = jpa.write_token_rows(jkp, jvp, jk_rot, jv,
+                                          jnp.asarray(wide),
+                                          jnp.asarray(pos))
+
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tkp, tvp = (torch.from_numpy(a).to(tdt)
+                            for a in (q, k, v, kp, vp))
+    got_q = tpa.rope_write_token_rows(
+        tq, tk, tv, torch.from_numpy(cos), torch.from_numpy(sin), tkp, tvp,
+        torch.from_numpy(tables), torch.from_numpy(pos))
+    assert got_q.dtype == tdt and got_q.shape == (B, H, D)
+    np.testing.assert_array_equal(_as_f32(got_q), _as_f32(jq_rot))
+    np.testing.assert_array_equal(_as_f32(tkp)[:-1], _as_f32(want_k)[:-1])
+    np.testing.assert_array_equal(_as_f32(tvp)[:-1], _as_f32(want_v)[:-1])
+    # The clamped row landed in its table's last page.
+    off = pos[2] % page
+    np.testing.assert_array_equal(_as_f32(tvp)[tables[2, -1], off],
+                                  _as_f32(tv)[2].reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_plain_rotation_is_apply_rope(dtype):
+    """The plain rotating row write keeps its own copy of the rotation
+    (ops/ may not import models/): bit for bit the model's apply_rope."""
+    rng = np.random.default_rng(0)
+    B, heads, D = 5, 3, 32
+    cos, sin = ttf.rope_freqs(D, 64, 10000.0, device="cpu")
+    x = torch.from_numpy(_rand(rng, B, 1, heads, D)).to(dtype)
+    pos = torch.tensor([0, 3, 17, 63, 40])
+    want = ttf.apply_rope(x, cos, sin, pos[:, None])[:, 0]
+    got = tpa._rotate(x[:, 0], cos[pos], sin[pos])
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
