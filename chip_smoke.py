@@ -17,7 +17,10 @@ Phases, each of which raises (exit code != 0) if it fails:
      flash forwards through both the Hopper and the older kernel; the
      rotating row write (rope_row_write: rotary embedding of q and k and
      the K/V row write in one launch) bit-exact at the classic (B = 8,
-     W = 8) and the pipelined (B = 16, W = 16, idle slots) shapes;
+     W = 8) and the pipelined (B = 16, W = 16, idle slots) shapes; the
+     same checks once more on the draws of PR 7's first call, and the
+     fp32 packed wave on more seeds, each fp32 wave also against a
+     float64 reference (pad rows held to a derived bound, PERF.md);
   4. the classic path: LLMEngine serving 12 greedy requests on
      Llama-2-7B at full width and depth with random bf16 weights, every
      decode step a CUDA-graph replay, with every kernel's launch count
@@ -51,6 +54,17 @@ Phases, each of which raises (exit code != 0) if it fails:
      (also bf16), pipelined and speculative streams equal to the
      classic engine's, and a request exported mid-run from a pipelined
      engine continuing exactly in another;
+  6b. mixture of experts (`[moe]`) at Mixtral-8x7B widths, 16 of its 32
+     layers: paged decode, the rotating row write and the packed-wave
+     flash forward at its attention shape (32 query over 8 KV heads),
+     bf16 and fp32; the same 24 requests through the pipelined engine
+     (bf16, random weights; launches, captures, decode and wave rates);
+     one layer's exact route against the reference's gathering form; a
+     replayed 16-step chunk against the weights-only bound and its busy
+     share by kind; at fp32 with 2 layers, kernel path = plain path
+     tokens, replay = eager bit for bit (also bf16), and at capacity
+     factor 8.0 pipelined (with and without packed admission),
+     speculative and handoff streams = classic;
   7. the flash backward kernels (dq, dk/dv) against their plain version,
      in bf16 and fp32, at the training shape (b = 8, H = KVH = 14,
      D = 128, s = 2048, causal; the forward there too), a GQA shape,
@@ -99,6 +113,7 @@ import torch.nn.functional as F
 from ray_tpu_torch import bench as tbench
 from ray_tpu_torch.models import decode_graph as tdg
 from ray_tpu_torch.models import decoding as tdec
+from ray_tpu_torch.models import moe as tmoe
 from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -191,6 +206,10 @@ PROFILE_GROUPS = [
     ("flash kernels (port)", r"flash_(fwd|bwd)"),
     ("paged decode / row write (port)", r"paged_decode|row_write"),
     ("matmul (cuBLAS)", r"nvjet|gemm|cutlass|sm90_xmma"),
+    # The MoE router's softmax and top-k (which sorts its k values in
+    # place) and the capacity route's running count (cumsum); not the
+    # radix sort and cub scan of the embedding's backward.
+    ("MoE routing", r"softmax|[Tt]op[Kk]|SortKVInPlace|tensor_kernel_scan"),
     ("copy / cast", r"copy|CatArrayBatched"),
     ("reduction", r"reduce_kernel"),
     ("gather", r"gather|index_elementwise"),
@@ -198,8 +217,15 @@ PROFILE_GROUPS = [
 ]
 # Packed-wave views [nseg, seg_len] of the pipelined run's waves.
 PACKED_WAVES = ((16, 128), (16, 512), (8, 1024))
+# The valid prefixes of the fp32 gqa_serve [8, 1024] wave in PR 7's first
+# call, whose pad rows read 2.325e-5 against TOL on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (PERF.md, "Pad rows").
+PR7_WAVE = [1024, 695, 1016, 572, 766, 583, 888, 0]
 SHAPES = {"llama2_7b": dict(H=32, KVH=32, D=128, page=128),
           "gqa_serve": dict(H=16, KVH=4, D=128, page=128)}
+# The [moe] phase's attention shape: Mixtral-8x7B's 32 query heads over 8
+# KV heads.
+MIXTRAL_SHAPE = dict(H=32, KVH=8, D=128, page=128)
 
 
 def check(cond, msg):
@@ -426,13 +452,15 @@ def check_paged_decode(gen, tag, dtype, dev, s, B, W, ctx_list):
     return err, kp, vp, tables, ctx
 
 
-def check_rope_row_write(gen, tag, dtype, dev, s, kp, vp, tables, pos):
+def check_rope_row_write(gen, tag, dtype, dev, s, kp, vp, tables, pos,
+                         cfg=None):
     """The rotating row write against its plain version on fresh q, k, v
-    at positions `pos` (< 0: idle): the rotated q and every page but the
-    scratch page must be bit-exact.  Writes into kp, vp."""
+    at positions `pos` (< 0: idle), with the rope tables of `cfg`
+    (default Llama-2-7B's): the rotated q and every page but the scratch
+    page must be bit-exact.  Writes into kp, vp."""
     H, KVH, D = s["H"], s["KVH"], s["D"]
     B = pos.shape[0]
-    cos, sin = tdec.rope_tables(TransformerConfig.llama2_7b(), dev)
+    cos, sin = tdec.rope_tables(cfg or TransformerConfig.llama2_7b(), dev)
     q = rand(gen, (B, H, D), dtype, dev)
     k = rand(gen, (B, KVH, D), dtype, dev)
     v = rand(gen, (B, KVH, D), dtype, dev)
@@ -450,12 +478,29 @@ def check_rope_row_write(gen, tag, dtype, dev, s, kp, vp, tables, pos):
     check(exact, "rotating row write differs from its plain version")
 
 
+def attention_fp64(q, k, v):
+    """Causal attention in float64 (GQA heads repeated): the exact
+    reference that both sides of an fp32 comparison round away from."""
+    rep = q.shape[2] // k.shape[2]
+    q, k, v = (t.double() for t in (q, k.repeat_interleave(rep, 2),
+                                    v.repeat_interleave(rep, 2)))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    n = s.shape[-1]
+    s = s.masked_fill(torch.ones(n, n, dtype=torch.bool, device=q.device)
+                      .triu(1), float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
 def check_packed_wave(gen, tag, dtype, dev, s, nseg, seg_len):
     """The flash forward as a packed wave calls it: causal on the
     [nseg, seg_len] view, each segment a valid prefix of ragged length
     followed by pad rows (one row repeated, as a pad token gives), the
     last segment all pad (an unused one).  Every row against the plain
-    version.  Returns the largest error."""
+    version: valid rows to TOL; in fp32, pad rows to TOL plus
+    pad_row_bound, since a pad row's trailing keys are copies of one key
+    (PERF.md, "pad rows").  In fp32 both sides are also held against a
+    float64 reference, to show which of them carries the error.
+    Returns the largest error and the valid prefixes."""
     H, KVH, D = s["H"], s["KVH"], s["D"]
     q = rand(gen, (nseg, seg_len, H, D), dtype, dev)
     k = rand(gen, (nseg, seg_len, KVH, D), dtype, dev)
@@ -473,27 +518,76 @@ def check_packed_wave(gen, tag, dtype, dev, s, nseg, seg_len):
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     err_valid = diff[~pad].max().item()
+    err_pad = diff[pad].max().item() if pad.any() else 0.0
     kname = ("flash_fwd_sm90" if tat.flash_variant(dtype, D, True) == "sm90"
              else "flash_fwd")
-    print(f"[kernel] {kname} {tag} packed wave "
-          f"[{nseg}, {seg_len}] valid {valid.tolist()}: max_abs_err "
-          f"{err:.3e}, on valid rows {err_valid:.3e} (tolerance "
-          f"{TOL[dtype]:g})")
-    check(not torch.isnan(got).any().item() and err <= TOL[dtype],
+    text = (f"[kernel] {kname} {tag} packed wave [{nseg}, {seg_len}] valid "
+            f"{valid.tolist()}: max_abs_err {err:.3e}, on valid rows "
+            f"{err_valid:.3e} (tolerance {TOL[dtype]:g}), on pad rows "
+            f"{err_pad:.3e}")
+    ok = err_valid <= TOL[dtype]
+    if dtype == torch.float32:
+        bound = TOL[dtype] + pad_row_bound(v, want)
+        exact = attention_fp64(q, k, v)
+        e_kern = (got.double() - exact).abs()
+        e_plain = (want.double() - exact).abs()
+        rows = [("valid", ~pad), ("pad", pad)] if pad.any() else [
+            ("valid", ~pad)]
+        text += (f" (pad-row bound {bound[pad].min().item():.3e}.."
+                 f"{bound[pad].max().item():.3e}, largest share of it "
+                 f"{(diff / bound[..., None, None])[pad].max().item():.3f})"
+                 if pad.any() else "") + "; against float64: " + ", ".join(
+            f"{name} rows kernel {e_kern[m].max().item():.3e} plain "
+            f"{e_plain[m].max().item():.3e}" for name, m in rows)
+        ok = ok and bool((diff <= bound[..., None, None]).all())
+    else:
+        ok = ok and err <= TOL[dtype]
+    print(text)
+    check(not torch.isnan(got).any().item() and ok,
           "flash forward disagrees on a packed wave")
-    return err
+    return err, valid.tolist()
 
 
-def phase_kernels(dev):
+# The unit roundoff of float32.
+FP32_U = 2.0 ** -24
+
+
+def pad_row_bound(v, out):
+    """Per row of a causal [nseg, seg_len] fp32 attention, what two fp32
+    evaluations that sum the row's n keys in different orders may
+    differ by, beyond the order-independent part TOL covers: a row's
+    output is A / l with A = sum_j p_j v_j and l = sum_j p_j over its
+    n = row + 1 keys.  A sum of n terms carries at most (n - 1) u
+    sum |terms| of rounding error in any order (u = 2^-24), so A is off
+    by at most n u max|v| l and l by n u l, and A / l by
+    n u (max|v| + |out|); two evaluations differ by twice that.  Rows
+    whose keys are random reach a small part of it (the errors of
+    independent terms cancel); a pad row's trailing keys are copies of
+    one key, whose additions round alike and add up.  Returns
+    [nseg, seg_len]."""
+    n = torch.arange(1, v.shape[1] + 1, device=v.device, dtype=torch.float64)
+    vmax = v.double().abs().amax(dim=(1, 2, 3))[:, None]
+    omax = out.double().abs().amax(dim=(2, 3))
+    return 2 * n[None] * FP32_U * (vmax + omax)
+
+
+def phase_kernels(dev, pr7_draws=False):
     """Each kernel against its plain version, at the classic path's
     shapes and at those the pipelined path gives it (paged decode at
     B = 16 over 16-page tables, the flash forward on packed-wave views);
     returns the largest bf16 error per kernel at the main path's
-    (Llama-2-7B) shapes (0 for the row write, which must be bit-exact)."""
+    (Llama-2-7B) shapes (0 for the row write, which must be bit-exact).
+
+    pr7_draws: the rotating row write draws from the shared generator,
+    as in PR 7's first call, which gives every later check the inputs it
+    had there (the fp32 gqa_serve [8, 1024] wave's valid prefixes were
+    PR7_WAVE); otherwise it has a generator of its own, and the packed
+    wave check runs on a few more seeds."""
     gen = torch.Generator(device=dev).manual_seed(1)
     # The rotating row write draws its q, k, v from a generator of its
     # own, so that the other checks keep their inputs.
-    gen_rope = torch.Generator(device=dev).manual_seed(7)
+    gen_rope = (gen if pr7_draws
+                else torch.Generator(device=dev).manual_seed(7))
     worst = {k: 0.0 for k in KERNELS}
     for shape_name, s in SHAPES.items():
         H, KVH, D, page = s["H"], s["KVH"], s["D"], s["page"]
@@ -558,11 +652,21 @@ def phase_kernels(dev):
             # Packed waves of the pipelined run: 1,024-token rows of
             # 128-, 512- and 1,024-token segments (the wrapper's kernel).
             for nseg, seg_len in PACKED_WAVES:
-                err_w = check_packed_wave(gen, tag, dtype, dev, s, nseg,
-                                          seg_len)
+                err_w, valid = check_packed_wave(gen, tag, dtype, dev, s,
+                                                 nseg, seg_len)
+                if pr7_draws and (shape_name, dtype, nseg) == (
+                        "gqa_serve", torch.float32, 8):
+                    print(f"[kernel] PR 7's draws reproduced (valid "
+                          f"prefixes {PR7_WAVE}): {valid == PR7_WAVE}")
                 if main:
                     worst["flash_fwd_sm90"] = max(worst["flash_fwd_sm90"],
                                                   err_w)
+    if not pr7_draws:
+        for seed in (2, 3, 4):
+            check_packed_wave(torch.Generator(device=dev).manual_seed(seed),
+                              f"gqa_serve float32 seed {seed}",
+                              torch.float32, dev, SHAPES["gqa_serve"], 8,
+                              1024)
     return worst
 
 
@@ -705,11 +809,13 @@ def phase_depth_bf16(dev, params, cfg):
     check(worst_rel <= DEPTH_REL_TOL, "bf16 kernel path drifts from plain")
 
 
-def phase_depth_fp32(dev):
-    """fp32, full width, 2 layers: greedy tokens of the kernel path and
-    the plain path identical for 16 steps, through LLMEngine."""
-    cfg = TransformerConfig.llama2_7b(num_layers=2, dtype=torch.float32)
-    params = init_params(cfg, seed=3, device=dev, dtype=torch.float32)
+def phase_depth_fp32(dev, cfg=None, params=None, tag="[depth]"):
+    """fp32, full width, 2 layers (default Llama-2-7B's): greedy tokens
+    of the kernel path and the plain path identical for 16 steps,
+    through the classic LLMEngine."""
+    if cfg is None:
+        cfg = TransformerConfig.llama2_7b(num_layers=2, dtype=torch.float32)
+        params = init_params(cfg, seed=3, device=dev, dtype=torch.float32)
     prompts = make_prompts(np.random.default_rng(3), [60, 333, 700, 1000],
                            0, [])
     kw = dict(device=dev, page_size=128, num_pages=40, max_batch=4)
@@ -717,15 +823,16 @@ def phase_depth_fp32(dev):
     with plain_ops():
         plain = LLMEngine(cfg, params, **kw).generate(prompts, 16)
     same = kern == plain
-    print(f"[depth] fp32 2 layers, 16 greedy steps x {len(prompts)} "
+    print(f"{tag} fp32 2 layers, 16 greedy steps x {len(prompts)} "
           f"requests: tokens identical {same}")
-    check(same, "fp32 kernel path tokens differ from the plain path")
+    check(same, f"{tag} fp32 kernel path tokens differ from the plain path")
 
 
-def profiled(fn, calls, label, smi):
+def profiled(fn, calls, label, smi, show=None):
     """Run fn `calls` times under torch.profiler; print the wall time per
-    call, the card's busy time (its kernels' total) and the busiest
-    kernels."""
+    call, the card's busy time (its kernels' total) and its device time
+    and launches by kind of kernel, and the kernels of kind `show` by
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -757,11 +864,12 @@ def profiled(fn, calls, label, smi):
           f", by kind: " + ", ".join(
               f"{g} {n / calls:.0f}" for g, n in sorted(
                   counts.items(), key=lambda kv: -kv[1])))
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total):
+        if show and re.search(dict(PROFILE_GROUPS)[show], e.key):
+            print(f"[profile]   {show}: {e.key[:90]}: "
+                  f"{e.self_device_time_total / 1e3 / calls:.3f} ms and "
+                  f"{e.count / calls:.0f} launches per step")
     return counts
-    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile]   {e.key[:70]}: "
-              f"{e.self_device_time_total / 1e3 / calls:.3f} ms and "
-              f"{e.count // calls} launches per step")
 
 
 def phase_profile(eng, smi):
@@ -963,11 +1071,12 @@ def host_ms(fn, n):
     return float(np.median(times)) * 1e3
 
 
-def phase_pipelined(dev, params, cfg, smi):
-    """The pipelined engine on Llama-2-7B at full width and depth: 16
-    requests at the start, 8 more after the third step, every decode a
-    replayed graph; returns launches per kernel, the engine, the
-    requests and their streams."""
+def phase_pipelined(dev, params, cfg, smi, tag="[pipelined]",
+                    model="Llama-2-7B bf16"):
+    """The pipelined engine on `model` (Llama-2-7B at full width and
+    depth; `[moe]`: Mixtral-8x7B widths): 16 requests at the start, 8
+    more after the third step, every decode a replayed graph; returns
+    launches per kernel, the engine, the requests and their streams."""
     eng = LLMEngine(cfg, params, device=dev, **PIPE)
     first, later, max_new = pipelined_requests(np.random.default_rng(10))
     reqs = {}
@@ -1030,37 +1139,37 @@ def phase_pipelined(dev, params, cfg, smi):
         toks = done.get(rid)
         check(toks is not None and len(toks) == n
               and all(0 <= t < cfg.vocab_size for t in toks),
-              f"[pipelined] request {rid} did not finish with {n} tokens")
+              f"{tag} request {rid} did not finish with {n} tokens")
     check(eng.allocator.num_free + eng.prefix_cache.num_idle
-          == eng.allocator.num_pages - 1, "[pipelined] pages leaked")
-    check(eng.prefix_cache.hits >= 1, "[pipelined] the prefix never hit")
+          == eng.allocator.num_pages - 1, f"{tag} pages leaked")
+    check(eng.prefix_cache.hits >= 1, f"{tag} the prefix never hit")
     check(eng.waves_dispatched >= 1 and eng.prefill_reconciles >= 1,
-          "[pipelined] no packed wave dispatched and reconciled")
+          f"{tag} no packed wave dispatched and reconciled")
     g = eng.graphs
     bound = len(tdg.KINDS) * g.bucket_bound()
     check(g.captures <= bound, f"{g.captures} captures, bound {bound}")
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
-              f"kernel {name} never launched in the pipelined run")
-    check_decode_launches(launches, cfg, "[pipelined]")
+              f"{tag} kernel {name} never launched in the pipelined run")
+    check_decode_launches(launches, cfg, tag)
     for name in REPLACED:
         check(launches[name] == 0,
-              f"{name} ran in the pipelined run beside its Hopper kernel")
+              f"{tag} {name} ran beside its Hopper kernel")
     wave_ms = sum(a.elapsed_time(b) for a, b, _ in waves)
     wave_tokens = sum(n for _, _, n in waves)
-    print(f"[pipelined] Llama-2-7B bf16, {json.dumps(PIPE)}: {len(ids)} "
+    print(f"{tag} {model}, {json.dumps(PIPE)}, on {smi}: {len(ids)} "
           f"requests (8 added after step 3), {steps} steps, {wall:.2f} s; "
           f"{eng.waves_dispatched} waves ({wave_tokens} prompt tokens), "
           f"{classic[0]} classic admissions, prefix-cache hits "
           f"{eng.prefix_cache.hits}, prefill reconciles "
           f"{eng.prefill_reconciles}")
-    print(f"[pipelined] graph captures {g.captures} (bound {bound}: "
+    print(f"{tag} graph captures {g.captures} (bound {bound}: "
           f"{len(tdg.KINDS)} kinds x {g.bucket_bound()} width buckets), "
-          f"{g.capture_seconds:.2f} s in all (warm-ups included; left out "
-          f"of the decode rate)")
-    print(f"[pipelined] launches, replays counted {json.dumps(launches)}")
+          f"{g.capture_seconds:.2f} s in all on {smi} (warm-ups included; "
+          f"left out of the decode rate)")
+    print(f"{tag} launches, replays counted {json.dumps(launches)}")
     busy_s = wall - g.capture_seconds
-    print(f"[pipelined] on {smi}: decode {decode_tokens / decode_s:.0f} "
+    print(f"{tag} on {smi}: decode {decode_tokens / decode_s:.0f} "
           f"tok/s ({decode_tokens} tokens reconciled over {decode_s:.3f} s "
           f"of host time of the steps that admitted nothing); prefill "
           f"through waves {wave_tokens / wave_ms * 1e3:.0f} tok/s "
@@ -1203,7 +1312,7 @@ def phase_graph_timings(main_eng, pipe_eng, smi):
     del old
 
 
-def replay_equals_eager(dev, cfg, params):
+def replay_equals_eager(dev, cfg, params, tag="[graph]"):
     """One 16-step chunk, replayed and eager, on the same state, tables
     and cache: tokens, state and every page but the scratch page equal
     to the bit."""
@@ -1233,7 +1342,7 @@ def replay_equals_eager(dev, cfg, params):
             and all(torch.equal(flat(a), flat(b))
                     for a, b in zip(after[1:], cache.values())))
     live = int((replayed >= 0).sum())
-    print(f"[graph] replay vs eager, 16-step chunk at 16 slots, "
+    print(f"{tag} replay vs eager, 16-step chunk at 16 slots, "
           f"{str(cfg.dtype)[6:]} 2 layers full width: identical {same} "
           f"({live} tokens; tolerance: bit for bit)")
     check(same, "a replayed chunk differs from the eager one")
@@ -1249,22 +1358,32 @@ def phase_pipelined_fp32(dev):
     bf = dataclasses.replace(cfg, dtype=torch.bfloat16)
     replay_equals_eager(dev, bf, init_params(bf, seed=3, device=dev,
                                              dtype=bf.dtype))
+    engine_identities(dev, cfg, params, "[pipelined]")
+
+
+def engine_identities(dev, cfg, params, tag, unpacked=False):
+    """fp32, 2 layers: the pipelined engine (packed admission; with
+    `unpacked` also without it) gives the classic engine's streams,
+    speculative decoding plain greedy's, and a request exported from a
+    pipelined engine continues exactly in another."""
     rng = np.random.default_rng(6)
     prompts = make_prompts(rng, [60, 333, 700, 1000, 129, 257], 0, [])
     prompts.append((prompts[0][:7] * 40)[:280])  # repetitive: drafts
     kw = dict(device=dev, page_size=128, num_pages=64, max_batch=4)
     want = LLMEngine(cfg, params, **kw).generate(prompts, 24)
-    pipe = LLMEngine(cfg, params, multi_step=16, **kw)
-    same = pipe.generate(prompts, 24) == want
-    print(f"[pipelined] fp32 2 layers, {len(prompts)} requests x 24 "
-          f"tokens, 4 slots: pipelined (multi_step 16, packed admission, "
-          f"{pipe.waves_dispatched} waves) tokens identical to classic "
-          f"{same}")
-    check(same and pipe.waves_dispatched >= 1,
-          "fp32 pipelined tokens differ from the classic engine's")
+    for packed in (True, False) if unpacked else (True,):
+        pipe = LLMEngine(cfg, params, multi_step=16, packed_admit=packed,
+                         **kw)
+        same = pipe.generate(prompts, 24) == want
+        print(f"{tag} fp32 2 layers, {len(prompts)} requests x 24 "
+              f"tokens, 4 slots: pipelined (multi_step 16, packed admission "
+              f"{packed}, {pipe.waves_dispatched} waves) tokens identical "
+              f"to classic {same}")
+        check(same and (pipe.waves_dispatched >= 1) == packed,
+              "fp32 pipelined tokens differ from the classic engine's")
     spec = LLMEngine(cfg, params, speculative_k=4, **kw)
     same = spec.generate(prompts, 24) == want
-    print(f"[pipelined] fp32 2 layers: speculative_k=4 tokens identical to "
+    print(f"{tag} fp32 2 layers: speculative_k=4 tokens identical to "
           f"plain greedy {same} ({spec.spec_steps} verify steps, drafted "
           f"{spec.spec_drafted}, accepted {spec.spec_accepted})")
     check(same and spec.spec_accepted > 0,
@@ -1281,10 +1400,161 @@ def phase_pipelined_fp32(dev):
         got.update(dec.step())
     ref = LLMEngine(cfg, params, **kw).generate([prompts[3]], 64)[0]
     same = got[rid2] == ref
-    print(f"[pipelined] fp32 2 layers: export_kv after "
+    print(f"{tag} fp32 2 layers: export_kv after "
           f"{len(bundle['generated'])} tokens from a pipelined engine, "
           f"import_kv into another: continuation identical {same}")
     check(same, "the imported request's continuation differs")
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts at Mixtral-8x7B widths
+# ---------------------------------------------------------------------------
+
+def mixtral_config(**kw):
+    """Mixtral-8x7B's widths, from mistralai/Mixtral-8x7B-v0.1's
+    config.json: vocab 32000, hidden 4096, intermediate 14336, 32 heads
+    over 8 KV heads (head_dim 128), 8 experts with 2 per token, rope_theta
+    1e6, rms_eps 1e-5, 32768 positions; the reference's capacity factor
+    1.25 and its head tied to the embedding.  Cut to 16 of its 32 layers:
+    32 layers of bf16 weights (93.1 GB) exceed the card's 80 GB, 16 take
+    46.7 GB and leave room for the KV pages, the packed waves' expert
+    buffers and the graphs' pool."""
+    return TransformerConfig(**{**dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=16, num_heads=32, num_kv_heads=8, max_seq_len=32768,
+        rope_theta=1e6, rms_eps=1e-5, num_experts=8,
+        num_experts_per_token=2, capacity_factor=1.25), **kw})
+
+
+def phase_moe_kernels(dev, smi):
+    """The serving kernels at Mixtral's attention shape (H = 32 over
+    KVH = 8, D = 128, page 128), bf16 and fp32, against their plain
+    versions: paged decode and the rotating row write at the pipelined
+    run's B = 16 over 16-page tables (idle slots), the flash forward on
+    the packed-wave views.  Returns the largest bf16 error per kernel."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cfg = mixtral_config()
+    print(f"[moe] the serving kernels at Mixtral's attention shape "
+          f"{MIXTRAL_SHAPE}, against their plain versions, on {smi}:")
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = f"mixtral {str(dtype)[6:]}"
+        err, kp, vp, tables, ctx = check_paged_decode(
+            gen, tag, dtype, dev, MIXTRAL_SHAPE, 16, 16,
+            [0, 1, 100, 127, 128, 129, 255, 256, 257, 500, 640, 777, 0, 1000,
+             1100, 1128])
+        check_rope_row_write(gen, tag, dtype, dev, MIXTRAL_SHAPE, kp, vp,
+                             tables, ctx - 1, cfg)
+        err_w = max(check_packed_wave(gen, tag, dtype, dev, MIXTRAL_SHAPE,
+                                      nseg, seg_len)[0]
+                    for nseg, seg_len in PACKED_WAVES)
+        if dtype == torch.bfloat16:
+            worst = {"paged_decode_attention": err, "rope_row_write": 0.0,
+                     "flash_fwd_sm90": err_w}
+    return worst
+
+
+def phase_moe(dev, smi):
+    """Mixtral-8x7B widths, 16 layers, random bf16 weights, through the
+    pipelined engine at [pipelined]'s settings and its 24 requests; then
+    a replayed 16-step chunk at 16 slots against the weights-only bound,
+    and the card's busy share of it by kind."""
+    cfg = mixtral_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = toptim.tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    weight_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    print(f"[moe] Mixtral-8x7B widths, {cfg.num_layers} of 32 layers, "
+          f"random bf16 weights: {n:,} params, {weight_bytes / 1e9:.2f} GB "
+          f"(num_params, the reference's dense formula: "
+          f"{num_params(cfg):,}), made in {time.perf_counter() - t0:.1f} s "
+          f"on {smi}; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    launches, eng, _, _, _ = phase_pipelined(
+        dev, params, cfg, smi, tag="[moe]",
+        model=f"Mixtral-8x7B widths, {cfg.num_layers} layers, bf16")
+    print(f"[moe] peak device memory of the run on {smi} "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    exact_route_timings(dev, params, cfg, smi)
+    g, steps = eng.graphs, eng.multi_step
+    ctx = np.random.default_rng(3).integers(100, 1001, size=16)
+    snap = graph_state(g, ctx, 4 * steps, 2)
+    W = eng._table_width(int(ctx.max()) + steps)
+
+    def chunk():
+        g.state.copy_(snap)
+        return g.multi_step(W, steps)
+
+    chunk_ms = host_ms(chunk, 5)
+    bound_ms = weight_bytes / HBM_BYTES_S * 1e3
+    per_step = chunk_ms / steps
+    print(f"[moe] {steps}-step chunk B=16 W={W} replayed on {smi}: "
+          f"{chunk_ms:.1f} ms (host, synchronized), {per_step:.2f} ms per "
+          f"step, {16 * steps / chunk_ms * 1e3:.0f} tok/s at 16 slots; "
+          f"weights-only bound per step {bound_ms:.2f} ms "
+          f"({weight_bytes / 1e9:.2f} GB / 3.35 TB/s), "
+          f"{bound_ms / per_step:.1%} of it")
+    profiled(chunk, 3, f"[moe] replayed {steps}-step chunk at 16 active "
+             f"requests", smi, show="MoE routing")
+    del chunk, snap, eng, g, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def exact_route_timings(dev, params, cfg, smi):
+    """One layer's exact route at the decode batch (16 slots), bf16:
+    moe_ffn_gather (every expert on every slot) against
+    moe_ffn_gather_plain, the reference's form that gathers each slot's
+    expert matrices ([16, 2, 4096, 14336] per matrix), on the same
+    inputs: agreement to two bf16 ulps of the largest output (other
+    matmul kernels round the expert products), and device times."""
+    bp = tdec._layer_params(params, 0)
+    w = [bp[k] for k in ("router", "we_gate", "we_up", "we_down")]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = rand(gen, (16, cfg.hidden_size), torch.bfloat16, dev)
+    kw = dict(num_experts_per_token=cfg.num_experts_per_token,
+              dtype=torch.bfloat16)
+    got = tmoe.moe_ffn_gather(x, *w, **kw)
+    want = tmoe.moe_ffn_gather_plain(x, *w, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 ** -6 * want.float().abs().max().item()
+    ms, _ = time_ms(lambda: tmoe.moe_ffn_gather(x, *w, **kw), 20)
+    plain_ms = time_eager_ms(lambda: tmoe.moe_ffn_gather_plain(x, *w, **kw),
+                             3)
+    gbytes = sum(t.numel() * t.element_size() for t in w)
+    print(f"[moe] exact route, one layer, 16 slots, bf16, on {smi}: "
+          f"moe_ffn_gather {ms:.3f} ms (device, replayed; all "
+          f"{gbytes / 1e9:.2f} GB of the layer's experts read once: bound "
+          f"{gbytes / HBM_BYTES_S * 1e3:.3f} ms), the gathering form "
+          f"{plain_ms:.3f} ms (eager); max |difference| {err:.3e} "
+          f"(tolerance {tol:.3e}: 2^-6 x max |out|)")
+    check(err <= tol, "[moe] the exact route's two forms disagree")
+
+
+def phase_moe_fp32(dev):
+    """fp32, Mixtral-8x7B widths, 2 layers: greedy tokens of the kernel
+    path equal the plain path's (classic engine, capacity factor 1.25);
+    one replayed 16-step chunk equals its eager run bit for bit (also
+    bf16); at capacity factor 8.0, where nothing is dropped, the
+    pipelined engine with and without packed admission gives the
+    classic engine's streams, speculative decoding plain greedy's, and
+    a handoff continues exactly."""
+    cfg = mixtral_config(num_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=3, device=dev, dtype=torch.float32)
+    phase_depth_fp32(dev, cfg, params, "[moe]")
+    replay_equals_eager(dev, cfg, params, tag="[moe]")
+    bf = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    replay_equals_eager(dev, bf, init_params(bf, seed=3, device=dev,
+                                             dtype=bf.dtype), tag="[moe]")
+    engine_identities(dev, dataclasses.replace(cfg, capacity_factor=8.0),
+                      params, "[moe] capacity factor 8.0:", unpacked=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1727,6 +1997,8 @@ def main() -> int:
     smi, name = phase_card()
     phase_build()
     worst = phase_kernels(dev)
+    for kname, err in phase_kernels(dev, pr7_draws=True).items():
+        worst[kname] = max(worst[kname], err)
 
     cfg = TransformerConfig.llama2_7b()
     t0 = time.perf_counter()
@@ -1763,6 +2035,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[main] serving phases done; device memory still allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    for kname, err in phase_moe_kernels(dev, smi).items():
+        worst[kname] = max(worst[kname], err)
+    phase_moe(dev, smi)
+    phase_moe_fp32(dev)
+    print(f"[moe] done; device memory still allocated "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     for kname, err in list(phase_kernels_bwd(dev).items()) + list(

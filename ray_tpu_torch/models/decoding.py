@@ -32,11 +32,14 @@ them and rebuilds nothing (models/decode_graph.py).
 
 Numerics mirror models/transformer.py `forward` (same rms_norm / rope /
 projection order), so greedy decode reproduces the full forward's argmax
-token for token.  On a CUDA device prefill attention runs the flash
-kernel, and decode the rotating row-write kernel (rotary embedding and
-K/V row write, one launch per layer) and the paged-attention kernel; on
-the CPU prefill attention is the dense masked softmax the reference runs
-off-TPU.
+token for token (with experts: where the capacity route drops nothing).
+On a CUDA device prefill attention runs the flash kernel, and decode the
+rotating row-write kernel (rotary embedding and K/V row write, one launch
+per layer) and the paged-attention kernel; on the CPU prefill attention
+is the dense masked softmax the reference runs off-TPU.  MoE layers
+follow the reference's `_mlp`: a decode step takes the exact route
+(models/moe.py `moe_ffn_gather`: no weight gather, no sync), every other
+call the capacity route with pad rows kept out of routing.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.models.moe import moe_ffn, moe_ffn_gather
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     apply_rope,
@@ -132,8 +136,30 @@ def _project_qkv(x, bp, positions, cos, sin, c: TransformerConfig):
     return q, k, v
 
 
-def _mlp(x, bp, c: TransformerConfig):
+def _mlp(x, bp, c: TransformerConfig, positions=None):
+    """The MLP block with its residual.  With experts, the reference's
+    rule: a decode step (S == 1) takes the exact route, whatever the
+    caller (a capacity cutoff over the slots could drop a live
+    sequence's token); every other call the capacity route, with pad
+    rows (positions < 0) kept out of routing."""
     y = rms_norm(x, bp["mlp_norm"], c.rms_eps)
+    if c.num_experts > 0:
+        B, S, h = x.shape
+        y2d = y.reshape(B * S, h)
+        if S == 1:
+            out = moe_ffn_gather(
+                y2d, bp["router"], bp["we_gate"], bp["we_up"],
+                bp["we_down"], num_experts_per_token=c.num_experts_per_token,
+                dtype=c.dtype)
+        else:
+            valid = (positions.reshape(-1) >= 0
+                     if positions is not None else None)
+            out, _ = moe_ffn(
+                y2d, bp["router"], bp["we_gate"], bp["we_up"], bp["we_down"],
+                num_experts_per_token=c.num_experts_per_token,
+                capacity_factor=c.capacity_factor, dtype=c.dtype,
+                valid=valid)
+        return x + out.reshape(B, S, h)
     gate = F.silu(y @ bp["w_gate"].to(c.dtype))
     up = y @ bp["w_up"].to(c.dtype)
     return x + (gate * up) @ bp["w_down"].to(c.dtype)
@@ -190,7 +216,7 @@ def prefill(params, tokens, positions, cache: Cache, block_tables,
         write_page_tokens(ck, cv, k, v, block_tables + l * P, positions)
         attn = _prefill_attention(q, k, v, positions, c)
         x = x + attn.reshape(B, S, -1) @ bp["wo"].to(c.dtype)
-        x = _mlp(x, bp, c)
+        x = _mlp(x, bp, c, positions)
     return _lm_head(_last_valid(x, positions), params, c), cache
 
 
@@ -225,7 +251,7 @@ def _chunk_forward(params, tokens, positions, cache: Cache, block_tables,
         vf = cv[tables_l].reshape(B, max_ctx, kvh, hd)
         attn = dense_attention(q, kf, vf, mask, hd)
         x = x + attn.reshape(B, S, -1) @ bp["wo"].to(c.dtype)
-        x = _mlp(x, bp, c)
+        x = _mlp(x, bp, c, positions)
     return x, cache
 
 
@@ -389,7 +415,7 @@ def packed_prefill_admit(params, tokens, positions, row_tables, seg_slot,
             k.reshape(nseg, seg_len, c.num_kv_heads, hd),
             v.reshape(nseg, seg_len, c.num_kv_heads, hd), pos_seg, c)
         x = x + attn.reshape(R, S, -1) @ bp["wo"].to(c.dtype)
-        x = _mlp(x, bp, c)
+        x = _mlp(x, bp, c, positions)
 
     xs = x.reshape(nseg, seg_len, -1)
     logits = _lm_head(_last_valid(xs, pos_seg), params, c)

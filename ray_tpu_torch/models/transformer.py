@@ -14,11 +14,16 @@ backward recomputes the layer, flash forward kernel included; the
 reference's other policies ("dots", "save_attn", "dots_no_mlp") raise
 NotImplementedError.
 
+Mixture-of-experts (`num_experts > 0`) replaces the dense MLP with the
+routed experts of models/moe.py (capacity route) in `forward`, whose aux
+is the router's load-balance loss summed over layers; MoE training
+(`loss_fn` with the aux term) is a later slice and raises.
+
 Left out here: sharding annotations (a mesh concern of a later slice);
-mixture-of-experts (`num_experts > 0`) and ring attention
-(`ring_attention=True`) raise NotImplementedError.  With `use_flash=True`,
-attention on a CUDA device runs the flash kernels (ops/attention.py); on
-the CPU it runs their plain versions, as the reference does off-TPU.
+ring attention (`ring_attention=True`) raises NotImplementedError.  With
+`use_flash=True`, attention on a CUDA device runs the flash kernels
+(ops/attention.py); on the CPU it runs their plain versions, as the
+reference does off-TPU.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.models.moe import moe_ffn
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.fused_ce import fused_ce_nll
 
@@ -85,8 +91,6 @@ class TransformerConfig:
 
 def check_supported(c: TransformerConfig) -> None:
     """Raise NotImplementedError for what this slice does not port."""
-    if c.num_experts > 0:
-        raise NotImplementedError("mixture-of-experts is not ported yet")
     if c.ring_attention is True:
         raise NotImplementedError("ring attention is not ported yet")
     if not c.scan_layers:
@@ -99,26 +103,29 @@ def check_supported(c: TransformerConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def param_shapes(config: TransformerConfig) -> Dict[str, Any]:
-    """{name: shape} in the reference's layout, blocks stacked [L, ...]."""
+    """{name: shape} in the reference's layout, blocks stacked [L, ...];
+    with experts, router [L, h, E] and experts [L, E, h, m] / [L, E, m, h]
+    in place of the dense MLP."""
     c = config
     check_supported(c)
     hd, h, m, L = c.head_dim_, c.hidden_size, c.intermediate_size, \
         c.num_layers
-    return {
-        "tok_embed": (c.vocab_size, h),
-        "blocks": {
-            "attn_norm": (L, h),
-            "wq": (L, h, c.num_heads * hd),
-            "wk": (L, h, c.num_kv_heads * hd),
-            "wv": (L, h, c.num_kv_heads * hd),
-            "wo": (L, c.num_heads * hd, h),
-            "mlp_norm": (L, h),
-            "w_gate": (L, h, m),
-            "w_up": (L, h, m),
-            "w_down": (L, m, h),
-        },
-        "final_norm": (h,),
+    blocks = {
+        "attn_norm": (L, h),
+        "wq": (L, h, c.num_heads * hd),
+        "wk": (L, h, c.num_kv_heads * hd),
+        "wv": (L, h, c.num_kv_heads * hd),
+        "wo": (L, c.num_heads * hd, h),
+        "mlp_norm": (L, h),
     }
+    if c.num_experts > 0:
+        E = c.num_experts
+        blocks.update(router=(L, h, E), we_gate=(L, E, h, m),
+                      we_up=(L, E, h, m), we_down=(L, E, m, h))
+    else:
+        blocks.update(w_gate=(L, h, m), w_up=(L, h, m), w_down=(L, m, h))
+    return {"tok_embed": (c.vocab_size, h), "blocks": blocks,
+            "final_norm": (h,)}
 
 
 def init_params(config: TransformerConfig, seed: int = 0, *,
@@ -130,6 +137,7 @@ def init_params(config: TransformerConfig, seed: int = 0, *,
     Stored in `dtype` (default config.param_dtype).  Each matrix is
     drawn one layer at a time in fp32 and cast into its stacked tensor,
     so at most one layer's fp32 copy of one matrix exists at a time.
+    Expert tensors [L, E, ...] are drawn one [in, out] matrix at a time.
     The numbers differ from the reference's jax.random draws for the
     same seed; tests carry JAX params across with params_from_numpy."""
     dev = resolve_device(device)
@@ -139,8 +147,8 @@ def init_params(config: TransformerConfig, seed: int = 0, *,
 
     def normal(shape, fan_in):
         out = torch.empty(shape, dtype=dtype, device=dev)
-        for layer in range(shape[0] if len(shape) == 3 else 1):
-            dst = out[layer] if len(shape) == 3 else out
+        mats = out.view(-1, *shape[-2:])  # one [in, out] matrix per entry
+        for dst in mats:
             dst.copy_(torch.randn(dst.shape, generator=gen, device=dev)
                       / math.sqrt(fan_in))
         return out
@@ -151,7 +159,7 @@ def init_params(config: TransformerConfig, seed: int = 0, *,
         if name.endswith("norm"):
             return torch.ones(shapes, dtype=dtype, device=dev)
         # fan_in is the input width: h for the embedding table [vocab, h],
-        # the rows of every block matrix [L, in, out].
+        # the rows of every block matrix [L, (E,) in, out].
         return normal(shapes, shapes[-1] if name == "tok_embed"
                       else shapes[-2])
 
@@ -266,9 +274,15 @@ def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig):
     attn = _attention(q, k, v, mask, c).reshape(b, s, c.num_heads * hd)
     x = x + attn @ bp["wo"].to(c.dtype)
     y = rms_norm(x, bp["mlp_norm"], c.rms_eps)
+    if c.num_experts > 0:
+        out, aux = moe_ffn(
+            y.reshape(b * s, -1), bp["router"], bp["we_gate"], bp["we_up"],
+            bp["we_down"], num_experts_per_token=c.num_experts_per_token,
+            capacity_factor=c.capacity_factor, dtype=c.dtype)
+        return x + out.reshape(x.shape), aux
     gate = F.silu(y @ bp["w_gate"].to(c.dtype))
     up = y @ bp["w_up"].to(c.dtype)
-    return x + (gate * up) @ bp["w_down"].to(c.dtype)
+    return x + (gate * up) @ bp["w_down"].to(c.dtype), None
 
 
 def _embed_tokens(params, tokens, c: TransformerConfig) -> torch.Tensor:
@@ -318,14 +332,16 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     remat = c.remat and torch.is_grad_enabled()
     if remat:
         _check_remat_policy(c)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for weights in per_layer:
         bp = dict(zip(names, weights))
         if remat:
-            x = checkpoint(_block, x, bp, cos, sin, positions, mask, c,
-                           use_reentrant=False)
+            x, layer_aux = checkpoint(_block, x, bp, cos, sin, positions,
+                                      mask, c, use_reentrant=False)
         else:
-            x = _block(x, bp, cos, sin, positions, mask, c)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+            x, layer_aux = _block(x, bp, cos, sin, positions, mask, c)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return rms_norm(x, params["final_norm"], c.rms_eps), aux
 
 
@@ -333,7 +349,9 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             config: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
             return_aux: bool = False):
-    """tokens: [b, s] int → logits [b, s, vocab] (fp32)."""
+    """tokens: [b, s] int → logits [b, s, vocab] (fp32).  With
+    return_aux=True also the router's load-balance loss summed over
+    layers (zero for dense models)."""
     x, aux = forward_hidden(params, tokens, config, positions)
     logits = lm_logits(x, params["tok_embed"], config)
     if return_aux:
@@ -353,7 +371,12 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             config: TransformerConfig) -> torch.Tensor:
     """Next-token cross-entropy, fp32.  batch: {"tokens": [b, s+1]} and an
     optional {"mask": [b, s+1]} (the loss averages over mask[:, 1:], with
-    a denominator of at least 1)."""
+    a denominator of at least 1).  Dense models only: the MoE loss (with
+    the router's aux term) comes with the MoE training slice."""
+    if config.num_experts > 0:
+        raise NotImplementedError(
+            "loss_fn with num_experts > 0 (the router aux term, MoE "
+            "training) is not ported yet: it comes with the training slice")
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     mask = batch.get("mask")

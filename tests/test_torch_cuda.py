@@ -10,7 +10,9 @@ dims that are not powers of two), beside one Llama-2-7B-shaped case per
 kernel.  The last tests hold the decode's CUDA graphs to the eager
 functions bit for bit, count kernel launches through replays, show that
 the engine's dispatches wait on nothing (sync debug mode "error") and run
-the pipelined and speculative engines against the classic one.
+the pipelined and speculative engines against the classic one; the same
+holds for an MoE model (replay = eager, dispatches without a sync), and
+the exact MoE route's graph-safe form meets the gathering form at bf16.
 """
 
 import ctypes
@@ -658,16 +660,17 @@ def test_main_path_shape_takes_the_hopper_kernels(cuda, dtype):
 
 tdec = importlib.import_module(f"{PORT}.models.decoding")
 tdg = importlib.import_module(f"{PORT}.models.decode_graph")
+tmoe = importlib.import_module(f"{PORT}.models.moe")
 
 
-def _graph_setup(cuda, dtype):
+def _graph_setup(cuda, dtype, **cfg_kw):
     """DecodeGraphs over a 2-layer, head-dim-128 model with a filled
     cache and three live slots of a five-slot batch (two idle, one of
     them with an EOS that may fire)."""
     cfg = ttf.TransformerConfig.tiny(
         num_layers=2, num_heads=4, num_kv_heads=2, hidden_size=512,
         intermediate_size=256, vocab_size=128, max_seq_len=256,
-        dtype=dtype)
+        dtype=dtype, **cfg_kw)
     params = ttf.init_params(cfg, seed=1, device=cuda, dtype=dtype)
     page, num_pages, B = 16, 40, 5
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -703,7 +706,10 @@ def test_graph_replay_equals_eager_bit_for_bit(cuda, dtype, kind):
     """A replay of the captured graph and the eager function, on the same
     state, tables and cache at two W buckets: outputs, state and every
     page but the scratch page identical to the bit."""
-    graphs, cache = _graph_setup(cuda, dtype)
+    _check_replay_equals_eager(*_graph_setup(cuda, dtype), kind)
+
+
+def _check_replay_equals_eager(graphs, cache, kind):
     L, P = cache["k"].shape[:2]
     for W in (16, 8):
         snap = _snapshot(graphs, cache)
@@ -725,6 +731,16 @@ def test_graph_replay_equals_eager_bit_for_bit(cuda, dtype, kind):
             assert torch.equal(a.view(L * P, -1)[:-1], b.view(L * P, -1)[:-1])
         _restore(graphs, cache, snap)
     assert graphs.captures == 2 <= graphs.bucket_bound()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["decode_step", "decode_multi_step"])
+def test_moe_decode_replay_equals_eager_bit_for_bit(cuda, dtype, kind):
+    """As test_graph_replay_equals_eager_bit_for_bit with 8 experts, top
+    2: the exact route (every expert on every slot, top-k, the chosen
+    outputs combined) replays bit for bit as it runs eagerly."""
+    _check_replay_equals_eager(*_graph_setup(cuda, dtype, num_experts=8),
+                               kind)
 
 
 def test_replay_counts_each_kernel_launch(cuda):
@@ -827,3 +843,73 @@ def test_pipelined_engine_equals_classic_on_card(cuda):
     spec = _card_engine(cuda, speculative_k=4)
     assert spec.generate(prompts, 12) == want
     assert spec.spec_steps > 0
+
+
+def _moe_card_engine(cuda, **kw):
+    """_card_engine's model with 8 experts, top 2, at capacity factor 8.0
+    (nothing dropped, so every mode gives the classic streams)."""
+    cfg = ttf.TransformerConfig.tiny(
+        num_layers=2, num_heads=4, num_kv_heads=2, hidden_size=512,
+        intermediate_size=256, vocab_size=128, max_seq_len=128,
+        num_experts=8, num_experts_per_token=2, capacity_factor=8.0,
+        dtype=torch.float32)
+    params = ttf.init_params(cfg, seed=4, device=cuda, dtype=torch.float32)
+    return tse.LLMEngine(cfg, params, device=cuda,
+                         **{**dict(page_size=8, num_pages=64, max_batch=4),
+                            **kw})
+
+
+def test_moe_dispatches_never_synchronize(cuda):
+    """test_dispatches_never_synchronize with an MoE model: the packed
+    wave (capacity route, pad rows kept out of routing) and a chunk
+    (exact route, replayed) run under set_sync_debug_mode("error"); the
+    streams then finish as the classic engine's."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 128, size=n).tolist() for n in (12, 9, 14)]
+    want = _moe_card_engine(cuda).generate(prompts, 10)
+    eng = _moe_card_engine(cuda, multi_step=4)
+    eng.graphs.state[1].fill_(-1)  # dead slots while capturing
+    for W in (1, 2, 4, 8, 16):
+        eng.graphs.multi_step(W, 4)
+    ids = [eng.add_request(p, 10) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert eng._dispatch_prefill_wave() == 3
+        assert eng._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    done = {}
+    while eng.has_work():
+        done.update(eng.step())
+    assert [done[i] for i in ids] == want
+    assert eng.graphs.captures == 5
+
+
+def test_moe_gather_forms_agree_bf16(cuda):
+    """The exact route's graph-safe form (every expert on every token)
+    against the plain form that gathers each token's expert matrices, at
+    bf16 and 16 slots: the same routing (one fp32 router on the same
+    inputs) and the same combine; the expert products come from other
+    matmul kernels, so outputs agree to two bf16 ulps of the largest
+    output, 2^-6 x max |plain|.  Neither waits on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    T, h, m, E = 16, 512, 1024, 8
+    bf = torch.bfloat16
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda)
+                / math.sqrt(shape[-2])).to(bf)
+
+    x, router = torch.randn((T, h), generator=gen, device=cuda).to(bf), w(h, E)
+    wg, wu, wd = w(E, h, m), w(E, h, m), w(E, m, h)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tmoe.moe_ffn_gather(x, router, wg, wu, wd, dtype=bf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tmoe.moe_ffn_gather_plain(x, router, wg, wu, wd, dtype=bf)
+    assert got.dtype == bf and got.shape == (T, h)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -6 * want.float().abs().max().item(), err

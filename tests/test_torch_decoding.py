@@ -4,7 +4,8 @@ prefill, prefill_with_context, decode_step, decode_multi_step,
 merge_slot_state, packed_prefill_admit, verify_step and the KV handoff's
 gather_kv_pages / splice_kv_pages run on the same params, tokens and
 block tables in ray_tpu.models.decoding and its port; logits, tokens,
-the chained slot state and the written cache pages are compared.  fp32
+the chained slot state and the written cache pages are compared, for a
+dense model and, through the same tests, an MoE model.  fp32
 throughout: logits to 1e-4 and cache rows to 1e-5 (the same arithmetic
 summed in another order); tokens and slot state exactly.  Where the
 reference drops a write (pad rows, idle slots, pad handoff pages), the
@@ -35,12 +36,11 @@ ttf = importlib.import_module(f"{PORT}.models.transformer")
 PAGE, NUM_PAGES, WIDTH = 4, 32, 16
 
 
-@pytest.fixture(scope="module")
-def cfgs():
+def _configs(**kw):
     jc = jtf.TransformerConfig.tiny(
         num_layers=2, num_heads=4, num_kv_heads=2, hidden_size=32,
         intermediate_size=64, vocab_size=64, max_seq_len=64,
-        dtype=jnp.float32, use_flash=False)
+        dtype=jnp.float32, use_flash=False, **kw)
     kw = {f.name: getattr(jc, f.name)
           for f in dataclasses.fields(jtf.TransformerConfig)}
     tc = ttf.TransformerConfig(**{**kw, "dtype": torch.float32,
@@ -48,12 +48,34 @@ def cfgs():
     return jc, tc
 
 
-@pytest.fixture(scope="module")
-def params(cfgs):
+def _params(cfgs):
     jc, tc = cfgs
     jp = jtf.init_params(jc, jax.random.key(0))
     return jp, ttf.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
                                      device="cpu")
+
+
+@pytest.fixture(scope="module")
+def cfgs():
+    return _configs()
+
+
+@pytest.fixture(scope="module")
+def params(cfgs):
+    return _params(cfgs)
+
+
+# Mixtral's routing (8 experts, top 2) at the reference's capacity factor
+# 1.25: the capacity route's drops depend on the call's token count, and
+# each function below gets the same shapes on both sides.
+@pytest.fixture(scope="module")
+def moe_cfgs():
+    return _configs(num_experts=8, num_experts_per_token=2)
+
+
+@pytest.fixture(scope="module")
+def moe_params(moe_cfgs):
+    return _params(moe_cfgs)
 
 
 def _j(*arrays):
@@ -359,3 +381,17 @@ def test_gather_and_splice_kv_pages_match_jax(cfgs):
         np.testing.assert_array_equal(got["k"][layer, 0].numpy(),
                                       dst["k"][layer, 0])
     np.testing.assert_array_equal(got["v"][1, 3].numpy(), src["v"][1, 9])
+
+
+@pytest.mark.parametrize("check", [
+    test_prefill_context_and_decode_match_jax,
+    test_decode_multi_step_matches_jax,
+    test_packed_prefill_admit_matches_jax,
+    test_verify_step_matches_jax,
+], ids=lambda f: f.__name__[len("test_"):])
+def test_moe_functions_match_jax(moe_cfgs, moe_params, check):
+    """The parity tests above with an MoE model: prefill,
+    prefill_with_context, verify_step and packed_prefill_admit take the
+    capacity route (pad rows kept out of routing), decode_step and
+    decode_multi_step the exact route, on both sides."""
+    check(moe_cfgs, moe_params)

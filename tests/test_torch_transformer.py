@@ -162,6 +162,10 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
 @pytest.mark.parametrize("kw", [dict(num_experts=4),
                                 dict(ring_attention=True)])
 def test_later_slices_raise_not_implemented(kw):
+    """Ring attention raises as soon as params are made; MoE models serve,
+    but their loss (the router aux term, MoE training) raises."""
     cfg = ttf.TransformerConfig.tiny(dtype=torch.float32, **kw)
     with pytest.raises(NotImplementedError):
-        ttf.init_params(cfg, device="cpu")
+        params = ttf.init_params(cfg, device="cpu")
+        ttf.loss_fn(params, {"tokens": torch.zeros((1, 5), dtype=torch.long)},
+                    cfg)
