@@ -81,9 +81,25 @@ Phases, each of which raises (exit code != 0) if it fails:
      train_mfu, peak memory, the card's busy share over a step, and the
      flash kernels' launches per step read around the run (32 Hopper
      forwards, 16 Hopper dq, 16 Hopper dk/dv, none of the older variants);
+  8b. the same config under each remat policy (`[train-remat]`: "full",
+     "dots", "save_attn", "dots_no_mlp"), each from the same state and
+     batch: ms per step, tokens/s, train_mfu, peak memory of a step and
+     of the loss and gradients alone, the flash launches per step (32
+     forwards under "full" and "dots", 16 under the two that keep the
+     kernel's out and lse; 16 dq and 16 dk/dv), and the first step's
+     loss and grad norm the same bits under all four;
   9. the training path with its flash kernels against the plain path on
      the card: loss and every gradient at full width with 2 layers, bf16
      and fp32;
+  9b. MoE training (`[moe-train]`) at Mixtral-8x7B widths cut to 1 layer
+     (the eager optimizer's peak, PERF.md), full remat, fused CE, AdamW
+     with bf16 moments, b = 2, s = 4096: timed steps on one batch whose
+     loss falls, ms, tokens/s, peak memory, train_mfu by the reference's
+     flops_per_token and by active parameters, flash launches, the
+     optimizer's ms and the card's busy share by kind; at fp32 with 2
+     layers and s = 256, loss and every gradient of the kernel path
+     against the plain path, and every gradient under each policy
+     against no remat, bit for bit;
  10. the training kernels' times at the training shape beside their
      bounds, achieved TFLOP/s and PR 2's times, the plain backward's time
      and one PyTorch backward of the same attention; the older forward,
@@ -201,6 +217,13 @@ BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # does, which turns fp32 order differences into bf16 rounding flips).
 TRAIN_DEPTH_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 TRAIN = dict(batch=8, seq=2048, steps=6)
+# [train-remat]: timed steps per policy, after one step at learning rate 0.
+REMAT_STEPS = 3
+# [moe-train] at Mixtral-8x7B widths: depth, batch, sequence and timed
+# steps (PERF.md has the depth's reckoning), and the fp32 checks' depth
+# and batch.
+MOE_TRAIN = dict(layers=1, batch=2, seq=4096, steps=3)
+MOE_TRAIN_FP32 = dict(layers=2, batch=2, seq=256)
 # Device time by kind of kernel, matched on the kernel's name in order.
 PROFILE_GROUPS = [
     ("flash kernels (port)", r"flash_(fwd|bwd)"),
@@ -1739,6 +1762,46 @@ def phase_kernels_sm90(dev):
     return worst
 
 
+def check_train_launches(launches, L, steps, forwards, tag):
+    """The flash kernels' launches over `steps` training steps: the
+    Hopper forward `forwards` times per layer and step (2 when the
+    backward runs it again), Hopper dq and dk/dv once, the older
+    variants never."""
+    per_step = {n: c / steps for n, c in launches.items()}
+    print(f"{tag} flash launches per step {json.dumps(per_step)} (expected "
+          f"flash_fwd_sm90 {forwards * L}, Hopper dq and dk/dv {L} each, "
+          f"the older variants 0)")
+    check(launches == {"flash_fwd_sm90": forwards * L * steps,
+                       "flash_bwd_dq_sm90": L * steps,
+                       "flash_bwd_dkv_sm90": L * steps,
+                       "flash_fwd": 0, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
+          f"{tag} flash launches differ from the expected count")
+
+
+def timed_steps(ts, run, batch, steps):
+    """`steps` training steps on one batch from run["state"], which they
+    replace, with the kernels' counts and the peak memory read around
+    them: (losses, seconds, launches, peak bytes).  The state travels in
+    `run` so that no caller's name keeps the start state alive through
+    the steps, where it would count in the peak."""
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run["state"], m = ts.step(run["state"], batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: KERNELS[n]["kernel"].launches
+                for n in TRAIN_KERNELS + REPLACED}
+    return ([float(x) for x in losses], dt, launches,
+            torch.cuda.max_memory_allocated())
+
+
 def train_optimizer():
     return default_optimizer(warmup_steps=10, total_steps=1000,
                              mu_dtype=torch.bfloat16,
@@ -1754,7 +1817,7 @@ def phase_train(dev, smi):
     steps = TRAIN["steps"]
     ts = ShardedTrainStep(cfg, device=dev, optimizer=train_optimizer())
     t0 = time.perf_counter()
-    state = ts.init(0)
+    run = {"state": ts.init(0)}
     torch.cuda.synchronize()
     print(f"[train] {name}: {num_params(cfg):,} params (vocab "
           f"{cfg.vocab_size}, hidden {cfg.hidden_size}, MLP "
@@ -1767,44 +1830,21 @@ def phase_train(dev, smi):
         0, cfg.vocab_size, (B, S + 1))).to(dev)
     batch = {"tokens": tokens}
     t0 = time.perf_counter()
-    state, m = ts.step(state, batch)
+    run["state"], m = ts.step(run["state"], batch)
     first = float(m["loss"])
     print(f"[train] warm-up step (learning rate 0): loss {first:.4f}, "
           f"{time.perf_counter() - t0:.2f} s")
 
-    for spec in KERNELS.values():
-        spec["kernel"].launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, m = ts.step(state, batch)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {n: KERNELS[n]["kernel"].launches
-                for n in TRAIN_KERNELS + REPLACED}
-    losses = [float(x) for x in losses]
-    peak = torch.cuda.max_memory_allocated()
+    losses, dt, launches, peak = timed_steps(ts, run, batch, steps)
+    state = run.pop("state")
     tok_s = B * S * steps / dt
     mfu = tok_s * ttf.flops_per_token(cfg, S) / tbench._peak_flops(dev)
     print(f"[train] losses of the {steps} timed steps: "
           f"{[round(x, 4) for x in losses]} (same batch each step)")
     check(all(math.isfinite(x) for x in losses), "a loss is not finite")
     check(losses[-1] < losses[0], "the loss did not fall over the steps")
-    L = cfg.num_layers
-    per_step = {n: c / steps for n, c in launches.items()}
-    print(f"[train] launches per step {json.dumps(per_step)} (expected "
-          f"flash_fwd_sm90 {2 * L}: forward + remat recompute; Hopper dq "
-          f"and dk/dv {L} each; the older forward, dq and dk/dv kernels "
-          f"0)")
-    check(launches == {"flash_fwd_sm90": 2 * L * steps,
-                       "flash_bwd_dq_sm90": L * steps,
-                       "flash_bwd_dkv_sm90": L * steps,
-                       "flash_fwd": 0, "flash_bwd_dq": 0,
-                       "flash_bwd_dkv": 0},
-          "training kernel launches differ from the expected count")
+    # Full remat: the forward and the backward's re-run each launch it.
+    check_train_launches(launches, cfg.num_layers, steps, 2, "[train]")
     print(f"[train] on {smi}: {dt / steps * 1e3:.1f} ms per step, "
           f"{tok_s:.0f} tokens/s, train_mfu {mfu:.4f} (model FLOPs "
           f"{ttf.flops_per_token(cfg, S):.4e} per token over "
@@ -1877,6 +1917,203 @@ def phase_train_depth(dev):
         check(rel_loss <= tol and max(rel) <= tol,
               "training kernel path drifts from the plain path")
         del params, gk, gp
+    torch.cuda.empty_cache()
+
+
+# Flash forwards per layer and step under each policy: "save_attn" and
+# "dots_no_mlp" keep the kernel's out and lse, the others run it again.
+REMAT_FORWARDS = {"full": 2, "dots": 2, "save_attn": 1, "dots_no_mlp": 1}
+
+
+def phase_train_remat(dev, smi):
+    """The 0.9B headline config at b = 8, s = 2048 under each remat
+    policy, each from the same state (seed 0) and batch: the peak memory
+    of the loss and gradients alone (what the policy keeps shows there;
+    a step's peak is the eager optimizer's), a step at learning rate 0,
+    whose loss and grad norm must be the same bits under every policy,
+    then REMAT_STEPS timed steps (ms, tokens/s, train_mfu, peak memory,
+    flash launches per step)."""
+    name, base, B, S = tbench._config_ladder(ttf)[0]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, base.vocab_size, (B, S + 1))).to(dev)
+    batch = {"tokens": tokens}
+    flops = ttf.flops_per_token(base, S)
+    L = base.num_layers
+    first = {}
+    for policy, forwards in REMAT_FORWARDS.items():
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        ts = ShardedTrainStep(cfg, device=dev, optimizer=train_optimizer())
+        run = {"state": ts.init(0)}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        live = toptim.tree_map(lambda p: p.detach().requires_grad_(),
+                               run["state"]["params"])
+        grads = torch.autograd.grad(ts.loss_fn(live, batch),
+                                    toptim.tree_leaves(live))
+        grad_peak = torch.cuda.max_memory_allocated()
+        del live, grads
+        run["state"], m = ts.step(run["state"], batch)
+        first[policy] = (m["loss"], m["grad_norm"])
+        losses, dt, launches, peak = timed_steps(ts, run, batch,
+                                                 REMAT_STEPS)
+        del run, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+        tok_s = B * S * REMAT_STEPS / dt
+        check(all(math.isfinite(x) for x in losses) and losses[-1]
+              < losses[0], f"[train-remat] {policy}: the loss did not fall")
+        print(f"[train-remat] {name} b={B} s={S}, remat {policy!r} on "
+              f"{smi}: {dt / REMAT_STEPS * 1e3:.1f} ms per step, "
+              f"{tok_s:.0f} tokens/s, train_mfu "
+              f"{tok_s * flops / tbench._peak_flops(dev):.4f}, peak memory "
+              f"{peak / 2**30:.2f} GiB over a step, "
+              f"{grad_peak / 2**30:.2f} GiB over the loss and gradients "
+              f"alone ({held / 2**30:.2f} GiB of params and moments "
+              f"held); losses {[round(x, 4) for x in losses]}")
+        check_train_launches(launches, L, REMAT_STEPS, forwards,
+                             f"[train-remat] {policy!r}")
+    loss0, norm0 = first["full"]
+    worst = max(max(abs(float(lo - loss0)), abs(float(no - norm0)))
+                for lo, no in first.values())
+    same = all(torch.equal(lo, loss0) and torch.equal(no, norm0)
+               for lo, no in first.values())
+    print(f"[train-remat] first step (learning rate 0) under the four "
+          f"policies: loss {float(loss0):.6f}, grad norm {float(norm0):.6f}; "
+          f"the same bits under all four {same} (largest difference "
+          f"{worst:.3e})")
+    check(same, "a remat policy changed the first step's loss or grad norm")
+
+
+def moe_active_flops_per_token(cfg, seq):
+    """6 x the parameters a token runs through (attention, its top-k
+    experts, the router; embedding and head left out, as flops_per_token
+    leaves them out) + flops_per_token's attention term.  Not the
+    capacity route's padding: its empty slots compute on zero rows."""
+    hd, h = cfg.head_dim_, cfg.hidden_size
+    attn = (2 * h * cfg.num_heads * hd + 2 * h * cfg.num_kv_heads * hd)
+    experts = cfg.num_experts_per_token * 3 * h * cfg.intermediate_size
+    per_layer = attn + experts + h * cfg.num_experts
+    return (6 * cfg.num_layers * per_layer
+            + 12 * cfg.num_layers * h * seq)
+
+
+def phase_moe_train(dev, smi):
+    """MoE training at Mixtral-8x7B widths, cut to MOE_TRAIN["layers"]
+    (PERF.md), full remat, fused CE, AdamW with bf16 mu and nu, fp32
+    master weights, b = 2, s = 4096: a step at learning rate 0, then
+    timed steps on one batch whose loss must fall."""
+    B, S, steps = MOE_TRAIN["batch"], MOE_TRAIN["seq"], MOE_TRAIN["steps"]
+    cfg = mixtral_config(num_layers=MOE_TRAIN["layers"], fused_ce=True,
+                         remat=True, remat_policy="full")
+    ts = ShardedTrainStep(cfg, device=dev, optimizer=train_optimizer())
+    t0 = time.perf_counter()
+    run = {"state": ts.init(0)}
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in toptim.tree_leaves(run["state"]["params"]))
+    print(f"[moe-train] Mixtral-8x7B widths, {cfg.num_layers} of 32 layers "
+          f"(PERF.md: the eager optimizer's whole-tree stages peak near 8 "
+          f"fp32 copies of the params), {n:,} params, fp32 master weights, "
+          f"AdamW bf16 mu/nu, remat {cfg.remat_policy}, fused_ce "
+          f"{cfg.fused_ce}, b={B} s={S}: init "
+          f"{time.perf_counter() - t0:.1f} s, device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S + 1))).to(dev)
+    batch = {"tokens": tokens}
+    t0 = time.perf_counter()
+    run["state"], m = ts.step(run["state"], batch)
+    print(f"[moe-train] warm-up step (learning rate 0): loss "
+          f"{float(m['loss']):.4f}, {time.perf_counter() - t0:.2f} s")
+    losses, dt, launches, peak = timed_steps(ts, run, batch, steps)
+    state = run.pop("state")
+    print(f"[moe-train] losses of the {steps} timed steps: "
+          f"{[round(x, 4) for x in losses]} (same batch each step)")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "[moe-train] the loss did not fall over the steps")
+    tok_s = B * S * steps / dt
+    peak_flops = tbench._peak_flops(dev)
+    ref = ttf.flops_per_token(cfg, S)
+    active = moe_active_flops_per_token(cfg, S)
+    print(f"[moe-train] on {smi}: {dt / steps * 1e3:.1f} ms per step, "
+          f"{tok_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); train_mfu "
+          f"{tok_s * ref / peak_flops:.4f} by the reference's "
+          f"flops_per_token ({ref:.4e} per token: a dense FFN once, the "
+          f"experts ignored), {tok_s * active / peak_flops:.4f} by active "
+          f"parameters ({active:.4e} per token: attention, top-"
+          f"{cfg.num_experts_per_token} experts, router)")
+    check_train_launches(launches, cfg.num_layers, steps, 2, "[moe-train]")
+    with torch.no_grad():  # the optimizer's share of a step
+        grads = toptim.tree_map(torch.zeros_like, state["params"])
+
+        def update():
+            upd, _ = ts.optimizer.update(grads, state["opt_state"],
+                                         state["params"])
+            toptim.apply_updates(state["params"], upd)
+
+        opt_ms = time_eager_ms(update, 2)
+        del grads
+    print(f"[moe-train] of which the optimizer (clip, AdamW, apply; eager "
+          f"PyTorch over {n:,} fp32 params): {opt_ms:.1f} ms")
+    profiled(lambda: ts.step(state, batch), 1, f"MoE training step "
+             f"(Mixtral-8x7B widths, {cfg.num_layers} layer(s), b={B}, "
+             f"s={S})", smi)
+    del state, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_train_fp32(dev):
+    """fp32, Mixtral-8x7B widths, MOE_TRAIN_FP32["layers"] layers, a short
+    sequence, unfused CE (nothing rounds to bf16): loss and every
+    gradient of the kernel path against the plain path (full remat), and
+    every gradient under each remat policy against no remat, bit for
+    bit."""
+    B, S = MOE_TRAIN_FP32["batch"], MOE_TRAIN_FP32["seq"]
+    cfg = mixtral_config(num_layers=MOE_TRAIN_FP32["layers"],
+                         dtype=torch.float32, remat=True,
+                         remat_policy="full")
+    params = init_params(cfg, seed=5, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (B, S + 1))).to(dev)
+
+    def loss_and_grads(c):
+        live = toptim.tree_map(lambda p: p.detach().requires_grad_(),
+                               params)
+        loss = ttf.loss_fn(live, {"tokens": tokens}, c)
+        return loss.detach(), torch.autograd.grad(
+            loss, toptim.tree_leaves(live))
+
+    lk, gk = loss_and_grads(cfg)
+    with plain_flash():
+        lp, gp = loss_and_grads(cfg)
+    rel_loss = abs(float(lk - lp)) / abs(float(lp))
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(gk, gp)]
+    tol = TRAIN_DEPTH_TOL[torch.float32]
+    print(f"[moe-train] fp32 {cfg.num_layers} layers, b={B} s={S}, unfused "
+          f"CE: loss {float(lk):.6f} vs plain {float(lp):.6f} (relative "
+          f"{rel_loss:.2e}); worst gradient max |kernel - plain| / max "
+          f"|plain| {max(rel):.3e} over {len(rel)} params (tolerance "
+          f"{tol:g})")
+    check(rel_loss <= tol and max(rel) <= tol,
+          "[moe-train] the kernel path drifts from the plain path")
+    del gp
+    l0, g0 = loss_and_grads(dataclasses.replace(cfg, remat=False))
+    for policy in REMAT_FORWARDS:
+        lr, gr = (lk, gk) if policy == "full" else loss_and_grads(
+            dataclasses.replace(cfg, remat_policy=policy))
+        worst = max((a - b).abs().max().item() for a, b in zip(gr, g0))
+        same = torch.equal(lr, l0) and all(
+            torch.equal(a, b) for a, b in zip(gr, g0))
+        print(f"[moe-train] fp32 remat {policy!r} against no remat: loss "
+              f"and every gradient the same bits {same} (largest "
+              f"difference {worst:.3e})")
+        check(same, f"[moe-train] remat {policy!r} changed a gradient")
+        del gr
+    del params, gk, g0
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2046,8 +2283,11 @@ def main() -> int:
     for kname, err in list(phase_kernels_bwd(dev).items()) + list(
             phase_kernels_sm90(dev).items()):
         worst[kname] = max(worst.get(kname, 0.0), err)
-    train_launches, _ = phase_train(dev, smi)
+    launches_train, _ = phase_train(dev, smi)
+    phase_train_remat(dev, smi)
     phase_train_depth(dev)
+    phase_moe_train(dev, smi)
+    phase_moe_train_fp32(dev)
     timings.update(phase_timings_train(dev, smi))
 
     kernels = []
@@ -2056,7 +2296,7 @@ def main() -> int:
         # flash_fwd_sm90 runs on both paths: its count here is the
         # pipelined serving run's (replays counted); [main] and [train]
         # print theirs.  row_write: the pipelined run's, 0.
-        launches = (train_launches[kname] if kname in train_launches
+        launches = (launches_train[kname] if kname in launches_train
                     and kname not in SERVE_KERNELS else launches_serve[kname])
         kernels.append({
             "name": kname, "route": "cuda", "source": spec["source"],

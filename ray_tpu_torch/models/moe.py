@@ -19,6 +19,12 @@ no nonzero, item() or boolean-mask indexing, one-hots are comparisons with
 an arange, and every shape follows from the inputs' shapes, so a decode
 step or a packed wave can be captured or dispatched without a sync.
 
+In training the router's two backward products (of `_route`'s product,
+models/remat.py `_Product`) run outside that context, at the process's
+`torch.backends.cuda.matmul.allow_tf32`, which PyTorch leaves False:
+full fp32 unless a caller turns TF32 on.  A gradient takes no discrete
+decision, so TF32 there would round it, not flip it.
+
 The reference's one-hot dispatch and combine einsums become index forms
 with the same values: dispatch copies each kept pair's token into its
 (expert, position) slot of an [E, C, h] buffer, and combine sums each
@@ -26,6 +32,18 @@ token's at most k kept outputs, each times its gate rounded to the
 compute dtype.  The buffer holds min(capacity, T) positions per expert:
 an expert takes at most one pair per token, so positions past T are
 never filled and a larger capacity drops nothing more.
+
+Gradients flow through the index forms as through the reference's
+einsums: the dispatch gather's backward adds each slot's gradient into
+its token's row (a token fills at most k slots; empty slots read the
+zero row and add into it); a dropped pair reads slot 0 with gate 0, so
+it adds nothing to that slot and its gate's gradient is 0; the combine's
+gate is rounded to the compute dtype, so its gradient is too, as the
+reference's bf16 combine einsum rounds it; the top-k renormalisation
+and the aux's mean probabilities are differentiable, the aux's top-1
+fractions (a one-hot) are not.  Under a remat policy the capacity route
+runs again in the backward from the same inputs through the same
+kernels, so the routing cannot change there.
 
 `moe_ffn_gather` does not gather weights: gathering each slot's k expert
 matrices, as the reference does ([T, k, h, m] per matrix; 11 GB per
@@ -46,6 +64,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.models.remat import Remat, linear
+
 
 @contextlib.contextmanager
 def _full_fp32_matmul():
@@ -60,13 +80,15 @@ def _full_fp32_matmul():
         flags.allow_tf32 = saved
 
 
-def _route(x: torch.Tensor, router_w: torch.Tensor, k: int
+def _route(x: torch.Tensor, router_w: torch.Tensor, k: int,
+           memo: Optional[Remat] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router of both routes: (probs [T, E] fp32, gates [T, k] fp32
     renormalized to sum 1 (at least 1e-9), experts [T, k] int64 in
-    descending probability)."""
+    descending probability).  `memo`: a training layer's remat policy,
+    which may keep the logits ("router")."""
     with _full_fp32_matmul():
-        logits = x.float() @ router_w.float()
+        logits = linear(x.float(), router_w.float(), memo, "router")
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -100,20 +122,22 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *,
             num_experts_per_token: int = 2, capacity_factor: float = 1.25,
             dtype: torch.dtype = torch.bfloat16,
-            valid: Optional[torch.Tensor] = None
+            valid: Optional[torch.Tensor] = None,
+            memo: Optional[Remat] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward on flattened tokens, the capacity route.
 
     x: [T, h]; router_w: [h, E]; w_gate / w_up: [E, h, m]; w_down:
     [E, m, h].  valid: optional [T] bool; False rows (pad tokens) claim
     no capacity and get no output.  T counts pad rows, so the capacity
-    depends on the batch's shape, as in the reference.  Returns (out
-    [T, h] in x's dtype, aux fp32 scalar)."""
+    depends on the batch's shape, as in the reference.  memo: a training
+    layer's remat policy (models/remat.py).  Returns (out [T, h] in x's
+    dtype, aux fp32 scalar)."""
     T, h = x.shape
     E = router_w.shape[-1]
     k = num_experts_per_token
     capacity = max(1, int(math.ceil(k * T / E * capacity_factor)))
-    probs, gates, experts = _route(x, router_w, k)
+    probs, gates, experts = _route(x, router_w, k, memo)
 
     # Load-balance loss on every token, before capacity and `valid`.
     frac = _one_hot(experts[:, 0], E, torch.float32).mean(dim=0)

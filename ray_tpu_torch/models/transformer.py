@@ -7,17 +7,24 @@ key for key.  bfloat16 activations, fp32 RMSNorm statistics and logits,
 GQA, RoPE and SwiGLU, as in the reference.
 
 Training: `loss_fn` is the reference's next-token cross-entropy, through
-the fused chunked CE (ops/fused_ce.py) when `fused_ce=True`.  With
-`remat=True` and `remat_policy="full"` each layer runs under
-torch.utils.checkpoint (non-reentrant) while grad is enabled, so the
-backward recomputes the layer, flash forward kernel included; the
-reference's other policies ("dots", "save_attn", "dots_no_mlp") raise
-NotImplementedError.
+the fused chunked CE (ops/fused_ce.py) when `fused_ce=True`, plus
+`router_aux_coef * aux / num_layers` for MoE models.  With `remat=True`
+each layer runs under torch.utils.checkpoint (non-reentrant) while grad
+is enabled, and `remat_policy` says what its forward keeps for the
+backward (models/remat.py): "full" the layer input only; "dots" every
+activation-by-weight product; "save_attn" the flash kernel's out and
+lse; "dots_no_mlp" q, k and v after rope, the flash outputs and the
+attention projection.  The port keeps what the reference's policies
+document, which is more than they keep: the reference names the flash
+residuals inside the kernel's custom_vjp rule, where its checkpoint
+policy never sees them, so its "save_attn" and "dots_no_mlp" run the
+flash forward again (ROADMAP.md, Queue C).  Under grad the block's
+weight products, rope and flash forward go through autograd Functions
+whatever the policy, so every policy and none compute the same values.
 
 Mixture-of-experts (`num_experts > 0`) replaces the dense MLP with the
-routed experts of models/moe.py (capacity route) in `forward`, whose aux
-is the router's load-balance loss summed over layers; MoE training
-(`loss_fn` with the aux term) is a later slice and raises.
+routed experts of models/moe.py (capacity route), whose aux is the
+router's load-balance loss summed over layers.
 
 Left out here: sharding annotations (a mesh concern of a later slice);
 ring attention (`ring_attention=True`) raises NotImplementedError.  With
@@ -39,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models.moe import moe_ffn
+from ray_tpu_torch.models.remat import Remat, check_policy, linear, run
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.fused_ce import fused_ce_nll
 
@@ -195,18 +203,6 @@ def params_from_numpy(tree: Dict[str, Any], config: TransformerConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _check_remat_policy(c: TransformerConfig) -> None:
-    """The policies the reference offers besides "full" raise until
-    ported; they matter only where a backward follows."""
-    if c.remat_policy == "full":
-        return
-    if c.remat_policy in ("dots", "save_attn", "dots_no_mlp"):
-        raise NotImplementedError(
-            f"remat_policy {c.remat_policy!r} is not ported yet; 'full' is")
-    raise ValueError(f"unknown remat_policy {c.remat_policy!r}; expected "
-                     "'full', 'dots', 'save_attn' or 'dots_no_mlp'")
-
-
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """Normalise in fp32, cast back, then scale in the working dtype."""
@@ -230,12 +226,51 @@ def rope_freqs(head_dim: int, max_len: int, theta: float,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     # x: [b, s, heads, hd]; cos/sin: [max_len, hd // 2]; positions: [b, s].
-    # bf16 x times fp32 cos/sin computes in fp32; cast back at the end.
-    c = cos[positions][:, :, None, :]
-    s = sin[positions][:, :, None, :]
+    return _rotate(x, cos[positions][:, :, None, :],
+                   sin[positions][:, :, None, :])
+
+
+def _rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+            ) -> torch.Tensor:
+    """Rope with the tables gathered at x's positions ([b, s, 1, hd/2]):
+    bf16 x times fp32 c / s computes in fp32, cast back at the end."""
     x1, x2 = x.chunk(2, dim=-1)
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+class _ProjRope(torch.autograd.Function):
+    """rope(y @ w) for q or k (`name`), y [b, s, h], w [h, heads * hd];
+    c / s the rope tables gathered at y's positions.  A policy may keep
+    the product (`name`) or the rotated value ("attn_" + name); the
+    backward needs neither, only y, w and the tables.  Rope's backward
+    is the inverse rotation in fp32 with one rounding to the product's
+    dtype, as the reference's transpose sums its two cotangents in fp32
+    before the cast."""
+
+    @staticmethod
+    def forward(ctx, y, w, c, s, heads, memo, name):
+        ctx.save_for_backward(y, w, c, s)
+        b, n, _ = y.shape
+
+        def rotated():
+            pre = run(memo, name, lambda: y @ w)
+            return _rotate(pre.view(b, n, heads, -1), c, s)
+
+        return run(memo, "attn_" + name, rotated)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w, c, s = ctx.saved_tensors
+        g1, g2 = g.float().chunk(2, dim=-1)
+        d = torch.cat([g1 * c + g2 * s, g2 * c - g1 * s], dim=-1)
+        d = d.to(y.dtype).reshape(-1, w.shape[1])
+        dy = dw = None
+        if ctx.needs_input_grad[0]:
+            dy = (d @ w.t()).view(y.shape)
+        if ctx.needs_input_grad[1]:
+            dw = y.reshape(-1, y.shape[-1]).t() @ d
+        return dy, dw, None, None, None, None, None
 
 
 def dense_attention(q, k, v, mask, head_dim: int) -> torch.Tensor:
@@ -252,36 +287,43 @@ def dense_attention(q, k, v, mask, head_dim: int) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _attention(q, k, v, mask, config: TransformerConfig) -> torch.Tensor:
+def _attention(q, k, v, mask, config: TransformerConfig,
+               memo: Optional[Remat] = None) -> torch.Tensor:
     """q:[b,s,h,hd] k,v:[b,s,kv,hd] causal attention with GQA."""
     if config.ring_attention is True:
         raise NotImplementedError("ring attention is not ported yet")
     if config.use_flash:
-        return flash_attention(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=True, memo=memo)
     return dense_attention(q, k, v, mask, config.head_dim_)
 
 
-def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig):
+def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig,
+           memo: Optional[Remat] = None):
+    """One layer; `memo` is the layer's remat policy under checkpoint."""
     c = config
     hd = c.head_dim_
     b, s, _ = x.shape
     y = rms_norm(x, bp["attn_norm"], c.rms_eps)
-    q = (y @ bp["wq"].to(c.dtype)).reshape(b, s, c.num_heads, hd)
-    k = (y @ bp["wk"].to(c.dtype)).reshape(b, s, c.num_kv_heads, hd)
-    v = (y @ bp["wv"].to(c.dtype)).reshape(b, s, c.num_kv_heads, hd)
-    q = apply_rope(q, cos, sin, positions)
-    k = apply_rope(k, cos, sin, positions)
-    attn = _attention(q, k, v, mask, c).reshape(b, s, c.num_heads * hd)
-    x = x + attn @ bp["wo"].to(c.dtype)
+    cg = cos[positions][:, :, None, :]
+    sg = sin[positions][:, :, None, :]
+    q = _ProjRope.apply(y, bp["wq"].to(c.dtype), cg, sg, c.num_heads, memo,
+                        "q")
+    k = _ProjRope.apply(y, bp["wk"].to(c.dtype), cg, sg, c.num_kv_heads,
+                        memo, "k")
+    v = linear(y, bp["wv"].to(c.dtype), memo, "v").reshape(
+        b, s, c.num_kv_heads, hd)
+    attn = _attention(q, k, v, mask, c, memo).reshape(b, s,
+                                                      c.num_heads * hd)
+    x = x + linear(attn, bp["wo"].to(c.dtype), memo, "attn_proj")
     y = rms_norm(x, bp["mlp_norm"], c.rms_eps)
     if c.num_experts > 0:
         out, aux = moe_ffn(
             y.reshape(b * s, -1), bp["router"], bp["we_gate"], bp["we_up"],
             bp["we_down"], num_experts_per_token=c.num_experts_per_token,
-            capacity_factor=c.capacity_factor, dtype=c.dtype)
+            capacity_factor=c.capacity_factor, dtype=c.dtype, memo=memo)
         return x + out.reshape(x.shape), aux
-    gate = F.silu(y @ bp["w_gate"].to(c.dtype))
-    up = y @ bp["w_up"].to(c.dtype)
+    gate = F.silu(linear(y, bp["w_gate"].to(c.dtype), memo, "gate"))
+    up = linear(y, bp["w_up"].to(c.dtype), memo, "up")
     return x + (gate * up) @ bp["w_down"].to(c.dtype), None
 
 
@@ -329,15 +371,17 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     # gradient per layer.
     names = list(params["blocks"])
     per_layer = zip(*(params["blocks"][k].unbind(0) for k in names))
+    if c.remat:
+        check_policy(c.remat_policy)
     remat = c.remat and torch.is_grad_enabled()
-    if remat:
-        _check_remat_policy(c)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for weights in per_layer:
         bp = dict(zip(names, weights))
         if remat:
+            memo = Remat(c.remat_policy)
             x, layer_aux = checkpoint(_block, x, bp, cos, sin, positions,
-                                      mask, c, use_reentrant=False)
+                                      mask, c, memo, use_reentrant=False)
+            memo.replay = True
         else:
             x, layer_aux = _block(x, bp, cos, sin, positions, mask, c)
         if layer_aux is not None:
@@ -369,14 +413,11 @@ def _masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             config: TransformerConfig) -> torch.Tensor:
-    """Next-token cross-entropy, fp32.  batch: {"tokens": [b, s+1]} and an
-    optional {"mask": [b, s+1]} (the loss averages over mask[:, 1:], with
-    a denominator of at least 1).  Dense models only: the MoE loss (with
-    the router's aux term) comes with the MoE training slice."""
-    if config.num_experts > 0:
-        raise NotImplementedError(
-            "loss_fn with num_experts > 0 (the router aux term, MoE "
-            "training) is not ported yet: it comes with the training slice")
+    """Next-token cross-entropy, fp32, plus the router's load-balance loss
+    for MoE models (`router_aux_coef` times its mean over layers).
+    batch: {"tokens": [b, s+1]} and an optional {"mask": [b, s+1]} (the
+    cross-entropy averages over mask[:, 1:], with a denominator of at
+    least 1; the aux term covers every token)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     mask = batch.get("mask")
@@ -384,14 +425,18 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         mask = mask[:, 1:]
     if config.fused_ce:
         b, s = inputs.shape
-        x, _ = forward_hidden(params, inputs, config)
+        x, aux = forward_hidden(params, inputs, config)
         nll = fused_ce_nll(x.reshape(b * s, -1), params["tok_embed"],
                            targets.reshape(-1))
-        return _masked_mean(nll, None if mask is None else mask.reshape(-1))
-    logits = forward(params, inputs, config)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
-    return _masked_mean(nll, mask)
+        ce = _masked_mean(nll, None if mask is None else mask.reshape(-1))
+    else:
+        logits, aux = forward(params, inputs, config, return_aux=True)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        ce = _masked_mean(nll, mask)
+    if config.num_experts > 0:
+        ce = ce + config.router_aux_coef * aux / config.num_layers
+    return ce
 
 
 def num_params(config: TransformerConfig) -> int:
@@ -407,7 +452,9 @@ def num_params(config: TransformerConfig) -> int:
 
 
 def flops_per_token(config: TransformerConfig, seq_len: int) -> float:
-    """Approximate forward+backward FLOPs/token (6ND + attention)."""
+    """Approximate forward+backward FLOPs/token (6ND + attention).  As in
+    the reference, N counts a dense FFN once (`num_params`): for an MoE
+    model the experts and the router are left out."""
     n = num_params(config) - config.vocab_size * config.hidden_size
     attn = 12 * config.num_layers * config.hidden_size * seq_len
     return 6 * n + attn

@@ -324,11 +324,18 @@ def _flash_chunk_fwd(q, k, v, q_off: int, kv_off: int, causal: bool,
 class _FlashChunk(torch.autograd.Function):
     """(out, lse) of one chunk, differentiable in q, k and v through both
     outputs.  CUDA tensors run the forward and backward kernels
-    `flash_variant` picks; CPU tensors the plain versions."""
+    `flash_variant` picks; CPU tensors the plain versions.  `memo`, a
+    layer's remat policy (models/remat.py `Remat`) or None, may keep
+    (out, lse) under the name "attn", so that a checkpoint's re-run takes
+    them instead of launching the forward again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_off, kv_off, causal, sm_scale):
-        out, lse = _flash_chunk_fwd(q, k, v, q_off, kv_off, causal, sm_scale)
+    def forward(ctx, q, k, v, q_off, kv_off, causal, sm_scale, memo):
+        def launch():
+            return _flash_chunk_fwd(q, k, v, q_off, kv_off, causal,
+                                    sm_scale)
+
+        out, lse = launch() if memo is None else memo.run("attn", launch)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (q_off, kv_off, causal, sm_scale)
         ctx.set_materialize_grads(False)
@@ -338,15 +345,15 @@ class _FlashChunk(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         if dout is None and dlse is None:
-            return None, None, None, None, None, None, None
+            return (None,) * 8
         impl = (_flash_chunk_bwd_cuda if q.is_cuda
                 else flash_attention_chunk_bwd_plain)
         dq, dk, dv = impl(q, k, v, out, lse, dout, dlse, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return (dq, dk, dv) + (None,) * 5
 
 
 def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
-                          sm_scale: Optional[float] = None
+                          sm_scale: Optional[float] = None, memo=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offset-aware flash attention returning (out, lse).
 
@@ -354,22 +361,26 @@ def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
     tensors).  lse is [b*h, sq] float32; rows with no visible keys get
     out = 0 and lse = -1e30.  CUDA tensors run the kernels
     `flash_variant` picks, CPU tensors the plain versions.
-    Both outputs are differentiable."""
+    Both outputs are differentiable; `memo` is a training layer's remat
+    policy (`_FlashChunk`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     q_off, kv_off = int(q_off), int(kv_off)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return _FlashChunk.apply(q, k, v, q_off, kv_off, causal, sm_scale)
+        return _FlashChunk.apply(q, k, v, q_off, kv_off, causal, sm_scale,
+                                 memo)
     return _flash_chunk_fwd(q, k, v, q_off, kv_off, causal, sm_scale)
 
 
 def flash_attention(q, k, v, causal: bool = True,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    memo=None) -> torch.Tensor:
     """Tiled attention. q:[b,s,h,d], k/v:[b,t,hk,d] -> [b,s,h,d].
 
     When sq < sk the windows are end-aligned (decode convention),
     matching attention_reference."""
     out, _ = flash_attention_chunk(q, k, v, k.shape[1] - q.shape[1], 0,
-                                   causal=causal, sm_scale=sm_scale)
+                                   causal=causal, sm_scale=sm_scale,
+                                   memo=memo)
     return out

@@ -13,9 +13,12 @@ the engine's dispatches wait on nothing (sync debug mode "error") and run
 the pipelined and speculative engines against the classic one; the same
 holds for an MoE model (replay = eager, dispatches without a sync), and
 the exact MoE route's graph-safe form meets the gathering form at bf16.
+Training: a tiny train step (dense and MoE) on the card against the
+CPU, and each remat policy's gradients and flash launches.
 """
 
 import ctypes
+import dataclasses
 import importlib
 import math
 
@@ -461,6 +464,70 @@ def test_fused_ce_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(n1.numpy(), n0.numpy(), rtol=1e-5)
     for a, b in ((dx1, dx0), (dw1, dw0)):
         assert (a - b).abs().max() <= 2 ** -8 * b.abs().max()
+
+
+def test_moe_train_step_on_cuda_matches_cpu(cuda):
+    """test_train_step_on_cuda_matches_cpu for the tiny MoE model (4
+    experts, top 2, capacity factor 1.25): two steps on the card and two
+    on the CPU from the same params and batches, the same tolerances."""
+    cfg = ttf.TransformerConfig.tiny(dtype=torch.float32, num_experts=4,
+                                     num_experts_per_token=2)
+    opt = dict(learning_rate=1e-2, warmup_steps=1, total_steps=10)
+    on_cpu = tts.ShardedTrainStep(cfg, device="cpu",
+                                  optimizer=tts.default_optimizer(**opt))
+    on_card = tts.ShardedTrainStep(cfg, device=cuda,
+                                   optimizer=tts.default_optimizer(**opt))
+    cpu_state = on_cpu.init(0)
+    params = toptim.tree_map(lambda t: t.to(cuda), cpu_state["params"])
+    card_state = {"params": params,
+                  "opt_state": on_card.optimizer.init(params), "step": 0}
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 65))}
+        cpu_state, cm = on_cpu.step(cpu_state, batch)
+        card_state, gm = on_card.step(card_state, batch)
+        np.testing.assert_allclose(gm["loss"].item(), cm["loss"].item(),
+                                   rtol=1e-5)
+    for a, b in zip(toptim.tree_leaves(card_state["params"]),
+                    toptim.tree_leaves(cpu_state["params"])):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("experts", [0, 4])
+@pytest.mark.parametrize("policy", ["full", "dots", "save_attn",
+                                    "dots_no_mlp"])
+def test_remat_policies_on_cuda(cuda, policy, experts, dtype):
+    """Each remat policy on the card: loss and every gradient the same
+    bits as with no remat (the re-run computes what the forward did, with
+    the same kernels), and the flash forward launched once per layer in
+    the forward plus once more in the backward under "full" and "dots"
+    (they run it again), not under "save_attn" and "dots_no_mlp" (they
+    keep its out and lse); dq and dk/dv once per layer."""
+    cfg = ttf.TransformerConfig.tiny(dtype=dtype, fused_ce=True,
+                                     num_experts=experts,
+                                     remat_policy=policy)
+    params = ttf.init_params(cfg, seed=2, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 65))).to(cuda)
+
+    def loss_and_grads(c):
+        live = toptim.tree_map(lambda p: p.detach().requires_grad_(),
+                               params)
+        loss = ttf.loss_fn(live, {"tokens": tokens}, c)
+        return loss, torch.autograd.grad(loss, toptim.tree_leaves(live))
+
+    l0, g0 = loss_and_grads(dataclasses.replace(cfg, remat=False))
+    kernels = (tat.FLASH_FWD_KERNELS, tat.FLASH_BWD_DQ_KERNELS,
+               tat.FLASH_BWD_DKV_KERNELS)
+    before = [_launches(k) for k in kernels]
+    loss, grads = loss_and_grads(cfg)
+    L = cfg.num_layers
+    forwards = 2 if policy in ("full", "dots") else 1
+    assert [_launches(k) - b for k, b in zip(kernels, before)] == [
+        forwards * L, L, L]
+    assert torch.equal(loss, l0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, g0))
 
 
 # ---------------------------------------------------------------------------

@@ -159,11 +159,9 @@ def test_entry_points_need_a_device_or_an_explicit_cpu():
         ttf.rope_freqs(16, 8, 10000.0)
 
 
-@pytest.mark.parametrize("kw", [dict(num_experts=4),
-                                dict(ring_attention=True)])
+@pytest.mark.parametrize("kw", [dict(ring_attention=True)])
 def test_later_slices_raise_not_implemented(kw):
-    """Ring attention raises as soon as params are made; MoE models serve,
-    but their loss (the router aux term, MoE training) raises."""
+    """Ring attention raises as soon as params are made."""
     cfg = ttf.TransformerConfig.tiny(dtype=torch.float32, **kw)
     with pytest.raises(NotImplementedError):
         params = ttf.init_params(cfg, device="cpu")
