@@ -47,6 +47,17 @@ Phases, each of which raises (exit code != 0) if it fails:
      turns, with its launches by kind; at bf16 the share of pipelined
      streams equal to the classic engine's and a speculative run's
      drafted / accepted counts (reported, not gated);
+  5c. the engine's observability plane (`[obs]`): [pipelined]'s engine,
+     weights and 24 requests with the step sampler every 2 steps and
+     every other request traced: one SLO sample per request (TTFT and
+     TPOT p50 / p99 printed, the ttft and tpot histograms count 24),
+     serve.queue / serve.prefill / serve.decode spans that tile for the
+     traced requests and none for the others, sampled roofline fractions
+     in (0, 1] with MFU > 0, the HBM ledger's weights and kv_pages equal
+     to the engine's bytes, decode_graph.* compile counts equal to the
+     captures, streams and every kernel's launches equal to
+     [pipelined]'s; then the same run twice with telemetry off, and the
+     host ms per 16-step chunk on and off;
   6. the kernel path against the plain path, teacher-forced: bf16 at
      full depth (prefill and decode logits) and fp32 with 2 layers
      (greedy tokens identical for 16 steps); at fp32, 2 layers, full
@@ -58,7 +69,8 @@ Phases, each of which raises (exit code != 0) if it fails:
      layers: paged decode, the rotating row write and the packed-wave
      flash forward at its attention shape (32 query over 8 KV heads),
      bf16 and fp32; the same 24 requests through the pipelined engine
-     (bf16, random weights; launches, captures, decode and wave rates);
+     (bf16, random weights; launches, captures, decode and wave rates;
+     one engine_sample, its roofline fraction in (0, 1] and MFU > 0);
      one layer's exact route against the reference's gathering form; a
      replayed 16-step chunk against the weights-only bound and its busy
      share by kind; at fp32 with 2 layers, kernel path = plain path
@@ -116,6 +128,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -139,9 +152,13 @@ from ray_tpu_torch.models.transformer import (
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as tat
 from ray_tpu_torch.ops import paged_attention as tpa
+from ray_tpu_torch.serve import llm_engine as tsrv
 from ray_tpu_torch.serve.llm_engine import LLMEngine
 from ray_tpu_torch.train import optim as toptim
 from ray_tpu_torch.train.train_state import ShardedTrainStep, default_optimizer
+from ray_tpu_torch.util import device_stats as tds
+from ray_tpu_torch.util import metrics as tmetrics
+from ray_tpu_torch.util import tracing as ttracing
 
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1231,6 +1248,235 @@ def phase_pipelined_bf16_checks(dev, params, cfg, prompts, max_new,
           f"{spec.spec_drafted}, accepted {spec.spec_accepted}")
 
 
+# ---------------------------------------------------------------------------
+# The engine's observability plane on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """Set one environment variable for the block, then restore it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def obs_engine(dev, params, cfg, telemetry):
+    """[pipelined]'s engine with the step sampler every 2 steps and the
+    device stats on, or with both off (RAY_TPU_DEVICE_STATS=0, sampler 0)."""
+    tds.set_enabled(telemetry)
+    with env_var("RAY_TPU_SERVE_STEP_SAMPLE_EVERY", "2" if telemetry
+                 else "0"):
+        return LLMEngine(cfg, params, device=dev, **PIPE)
+
+
+def obs_run(eng, traced):
+    """[pipelined]'s 24 requests through `eng`, every other one traced
+    when `traced`.  Returns the request ids, their streams, the engine
+    samples seen, and the decode-only steps' (no admission, no capture)
+    count, host seconds and seconds of that spent waiting on the card
+    (the engine's `read` of a record)."""
+    first, later, max_new = pipelined_requests(np.random.default_rng(10))
+    waited = [0.0]
+    inner_read = tsrv.read
+
+    def timed_read(host, event):
+        t = time.perf_counter()
+        out = inner_read(host, event)
+        waited[0] += time.perf_counter() - t
+        return out
+
+    ids = []
+
+    def add(prompt, n):
+        ctx = ((ttracing.new_span_id(), ttracing.new_span_id())
+               if traced and len(ids) % 2 else None)
+        ids.append(eng.add_request(prompt, n, trace_ctx=ctx))
+
+    tsrv.read = timed_read
+    try:
+        for p, n in zip(first, max_new[:16]):
+            add(p, n)
+        done, samples, steps = {}, [], 0
+        dec = dict(steps=0, wall=0.0, wait=0.0)
+        while eng.has_work():
+            if steps == 3:
+                for p, n in zip(later, max_new[16:]):
+                    add(p, n)
+            w0, q0, c0 = eng.waves_dispatched, len(eng.waiting), \
+                eng.graphs.captures
+            wait0, t = waited[0], time.perf_counter()
+            done.update(eng.step())
+            dt = time.perf_counter() - t
+            if (eng.waves_dispatched, len(eng.waiting),
+                    eng.graphs.captures) == (w0, q0, c0):
+                dec["steps"] += 1
+                dec["wall"] += dt
+                dec["wait"] += waited[0] - wait0
+            s = eng.engine_sample
+            if s is not None and (not samples or s is not samples[-1]):
+                samples.append(s)
+            steps += 1
+        torch.cuda.synchronize()
+    finally:
+        tsrv.read = inner_read
+    return ids, [done[i] for i in ids], samples, dec
+
+
+def serve_hist_counts(name):
+    snap = next(s for s in tmetrics.local_snapshots() if s["name"] == name)
+    return sum(v[2] for v in snap["series"].values())
+
+
+def percentiles(values):
+    return (float(np.percentile(values, 50)),
+            float(np.percentile(values, 99)))
+
+
+def phase_obs(dev, params, cfg, smi, launches_ref, streams_ref):
+    """[obs]: [pipelined]'s engine, weights and 24 requests with the
+    sampler every 2 steps and every other request traced; checks the SLO
+    samples, the phase spans, the sampler's roofline fraction and MFU,
+    the HBM ledger and the capture counts, and that the streams and every
+    kernel's launches equal [pipelined]'s; then the same run twice with
+    telemetry off, for the host cost per chunk."""
+    tds.reset()
+    ttracing.clear_spans()
+    ttft0 = serve_hist_counts("ray_tpu_serve_ttft_seconds")
+    tpot0 = serve_hist_counts("ray_tpu_serve_tpot_seconds")
+    eng = obs_engine(dev, params, cfg, telemetry=True)
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
+    ids, streams, samples, dec_on = obs_run(eng, traced=True)
+    launches = {name: spec["kernel"].launches
+                for name, spec in KERNELS.items()}
+    check(streams == streams_ref,
+          "[obs] token streams differ from [pipelined]'s")
+    check(launches == launches_ref,
+          f"[obs] launches {launches} differ from [pipelined]'s "
+          f"{launches_ref}")
+
+    # Requests: one SLO sample each.
+    slo = [s for s in eng.slo_samples if "shed" not in s]
+    check(len(slo) == len(ids) and len(eng.slo_samples) == len(ids),
+          f"[obs] {len(eng.slo_samples)} SLO samples for {len(ids)} requests")
+    check(sorted(s["tokens"] for s in slo) == sorted(map(len, streams)),
+          "[obs] SLO samples' tokens differ from the streams' lengths")
+    check(all(s["ttft"] > 0 and (s["tpot"] > 0 or s["tokens"] == 1)
+              for s in slo), "[obs] an SLO sample has ttft or tpot 0")
+    for name, before in (("ray_tpu_serve_ttft_seconds", ttft0),
+                         ("ray_tpu_serve_tpot_seconds", tpot0)):
+        got = serve_hist_counts(name) - before
+        check(got == len(ids), f"[obs] {name} counted {got}")
+    ttft = percentiles([s["ttft"] * 1e3 for s in slo])
+    tpot = percentiles([s["tpot"] * 1e3 for s in slo])
+    print(f"[obs] Llama-2-7B bf16, {json.dumps(PIPE)}, sampler every 2 "
+          f"steps, on {smi}: {len(slo)} SLO samples; TTFT p50 "
+          f"{ttft[0]:.1f} ms, p99 {ttft[1]:.1f} ms; TPOT p50 {tpot[0]:.2f} "
+          f"ms, p99 {tpot[1]:.2f} ms (engine slo_samples, host clock)")
+
+    # Spans: traced requests tile queue -> prefill -> decode.
+    spans = {}
+    for sp in ttracing.get_spans():
+        if sp["name"].startswith("serve."):
+            spans.setdefault(sp["attributes"]["req"], {})[sp["name"]] = sp
+    traced = ids[1::2]
+    check(sorted(spans) == sorted(traced),
+          f"[obs] serve.* spans for requests {sorted(spans)}, traced "
+          f"{sorted(traced)}")
+    for rid in traced:
+        j = spans[rid]
+        check({"serve.queue", "serve.prefill", "serve.decode"} <= set(j)
+              and j["serve.queue"]["end"] == j["serve.prefill"]["start"]
+              and j["serve.prefill"]["end"] == j["serve.decode"]["start"],
+              f"[obs] request {rid}'s phase spans do not tile: "
+              f"{sorted(j)}")
+    print(f"[obs] spans: {len(traced)} traced requests x serve.queue / "
+          f"serve.prefill / serve.decode, tiling; {len(ids) - len(traced)} "
+          f"untraced requests, no serve.* span")
+
+    # The sampler.
+    timed = [s for s in samples if s.get("tokens_per_s", 0) > 0]
+    check(any(0 < s["roofline_fraction"] <= 1.0 and s["mfu"] > 0
+              for s in timed), f"[obs] no sample with a roofline "
+          f"fraction in (0, 1] and mfu > 0: {timed}")
+    check(all(s["roofline_fraction"] <= 1.0 for s in timed),
+          "[obs] a roofline fraction over 1.0: the modeled bytes are wrong")
+    last = tds.last_step()
+    check(last is not None and last["plane"] == "serve",
+          f"[obs] last_step {last}")
+    fracs = [s["roofline_fraction"] for s in timed]
+    mfus = [s["mfu"] for s in timed]
+    print(f"[obs] sampler on {smi}: {len(samples)} samples, {len(timed)} "
+          f"with tokens; roofline fraction min {min(fracs):.4f} median "
+          f"{float(np.median(fracs)):.4f} max {max(fracs):.4f}; mfu median "
+          f"{float(np.median(mfus)):.4f}; a sample: {json.dumps(timed[-1])}")
+
+    # The ledger.
+    led = tds.ledger()
+    seen = {}
+    for t in toptim.tree_leaves(eng.params):
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    weights = sum(seen.values())
+    kv = (PIPE["num_pages"] * PIPE["page_size"] * cfg.num_layers * 2
+          * cfg.num_kv_heads * cfg.head_dim_
+          * torch.empty((), dtype=cfg.dtype).element_size())
+    check(led["backend"] == "cuda"
+          and led["device_kind"] == torch.cuda.get_device_name(0),
+          f"[obs] ledger backend {led['backend']} {led['device_kind']}")
+    check(led["components"] == {"weights": weights, "kv_pages": kv},
+          f"[obs] ledger components {led['components']}, want weights "
+          f"{weights} and kv_pages {kv}")
+    check(led["used_bytes"] >= weights + kv,
+          f"[obs] ledger used {led['used_bytes']} < weights + KV")
+    print(f"[obs] ledger on {smi}: weights {weights / 1e9:.3f} GB, "
+          f"kv_pages {kv / 1e9:.3f} GB, used {led['used_bytes'] / 1e9:.3f} "
+          f"GB, workspace {led['workspace_bytes'] / 1e9:.3f} GB, capacity "
+          f"{led['capacity_bytes'] / 1e9:.3f} GB, watermark "
+          f"{led['watermark_fraction']:.4f}")
+
+    # Compile accounting: each capture is one decode_graph.* compilation.
+    counts = {k: v["count"] for k, v in tds.compile_counts().items()}
+    graphs = sum(n for k, n in counts.items()
+                 if k.startswith("decode_graph."))
+    check(graphs == eng.graphs.captures > 0,
+          f"[obs] {graphs} decode_graph compilations, "
+          f"{eng.graphs.captures} captures")
+    print(f"[obs] compile counts {json.dumps(counts)}; recompiles after "
+          f"warm-up {json.dumps(tds.recompiles_after_warmup())}")
+    del eng
+    gc.collect()
+
+    # Telemetry off, twice: host ms per decode-only step (one replayed
+    # 16-step chunk dispatched, one reconciled).
+    runs = [("on", dec_on)]
+    for i in range(2):
+        eng = obs_engine(dev, params, cfg, telemetry=False)
+        _, off_streams, off_samples, dec = obs_run(eng, traced=False)
+        check(off_streams == streams_ref and not off_samples,
+              "[obs] the telemetry-off run differs")
+        runs.append((f"off{i + 1}", dec))
+        del eng
+        gc.collect()
+    tds.set_enabled(True)
+    torch.cuda.empty_cache()
+    own = {k: (d["wall"] - d["wait"]) / d["steps"] * 1e3 for k, d in runs}
+    wall = {k: d["wall"] / d["steps"] * 1e3 for k, d in runs}
+    print(f"[obs] host ms per 16-step chunk (decode-only steps, replayed) "
+          f"on {smi}: the host's own work (step wall minus its wait on the "
+          f"card) " + ", ".join(f"{k} {own[k]:.3f}" for k, _ in runs)
+          + "; step wall " + ", ".join(f"{k} {wall[k]:.2f}" for k, _ in runs)
+          + f"; {runs[0][1]['steps']} / {runs[1][1]['steps']} / "
+          f"{runs[2][1]['steps']} steps; telemetry's cost per chunk "
+          f"{own['on'] - (own['off1'] + own['off2']) / 2:+.3f} ms (own "
+          f"work, on minus the mean of off)")
+
+
 def graph_state(graphs, ctx, limit, seed, page=128):
     """Live state for every slot at contexts `ctx` (random tokens, limits
     ctx + limit, no EOS), each slot's table on pages of its own for the
@@ -1495,9 +1741,17 @@ def phase_moe(dev, smi):
           f"{num_params(cfg):,}), made in {time.perf_counter() - t0:.1f} s "
           f"on {smi}; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    launches, eng, _, _, _ = phase_pipelined(
-        dev, params, cfg, smi, tag="[moe]",
-        model=f"Mixtral-8x7B widths, {cfg.num_layers} layers, bf16")
+    with env_var("RAY_TPU_SERVE_STEP_SAMPLE_EVERY", "8"):
+        launches, eng, _, _, _ = phase_pipelined(
+            dev, params, cfg, smi, tag="[moe]",
+            model=f"Mixtral-8x7B widths, {cfg.num_layers} layers, bf16")
+    sample = eng.engine_sample
+    check(sample is not None and sample.get("tokens_per_s", 0) > 0
+          and 0 < sample["roofline_fraction"] <= 1.0 and sample["mfu"] > 0,
+          f"[moe] engine_sample {sample}: want tokens, a roofline fraction "
+          f"in (0, 1] and mfu > 0")
+    print(f"[moe] engine_sample (sampler every 8 steps) on {smi}: "
+          f"{json.dumps(sample)}")
     print(f"[moe] peak device memory of the run on {smi} "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
           f"(torch.cuda.max_memory_allocated)")
@@ -2259,6 +2513,7 @@ def main() -> int:
     del eng, pipe
     gc.collect()  # the engines' timing hooks form reference cycles
     torch.cuda.empty_cache()
+    phase_obs(dev, params, cfg, smi, launches_serve, streams)
     phase_pipelined_bf16_checks(dev, params, cfg, pipe_prompts, pipe_new,
                                 streams)
     gc.collect()

@@ -1,7 +1,8 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model and serving path.
 
 The JAX package `ray_tpu` is the reference; this package mirrors its
-layout (`models/`, `ops/`, `serve/`) and never imports it or JAX.  Plain
+layout (`models/`, `ops/`, `serve/`, `train/`, `util/`) and never
+imports it or JAX.  Plain
 tensor code is PyTorch; every Pallas TPU kernel on the ported path is a
 CUDA kernel written by hand for Hopper (`csrc/`), built with nvcc at
 first use (`ops/_build.py`) and held against a plain PyTorch version of

@@ -21,23 +21,19 @@ import time
 
 import torch
 
-# Peak bf16 dense FLOP/s by device name (NVIDIA data sheets, without
-# sparsity).  Longest key wins, so "h100pcie" matches before "h100".
-_PEAK_FLOPS = {
-    "h100": 989e12,      # H100 SXM
-    "h100pcie": 756e12,
-    "h200": 989e12,
-}
+from ray_tpu_torch.util import device_stats
 
 
 def _peak_flops(device: torch.device) -> float:
+    """The card's peak bf16 dense FLOP/s, from util/device_stats.py's
+    peak table (NVIDIA data sheets, without sparsity)."""
     if device.type == "cpu":
         return 1e12  # nominal, so the CPU smoke run still prints a line
-    kind = torch.cuda.get_device_name(device).lower().replace(" ", "")
-    for key in sorted(_PEAK_FLOPS, key=len, reverse=True):
-        if key in kind:
-            return _PEAK_FLOPS[key]
-    raise ValueError(f"no peak FLOP/s known for {kind!r}")
+    kind = torch.cuda.get_device_name(device)
+    spec = device_stats.peak_specs_for(kind)
+    if spec is None:
+        raise ValueError(f"no peak FLOP/s known for {kind!r}")
+    return spec[1]
 
 
 def _config_ladder(tfm):

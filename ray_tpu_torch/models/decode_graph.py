@@ -25,7 +25,10 @@ functions on the same buffers.
 A capture launches nothing on the card: the kernel wrappers log their
 calls under capture instead of counting them (ops/_build.py), and each
 replay adds its graph's logged launches, so that `Kernel.launches` keeps
-counting launches on the card.
+counting launches on the card.  Each capture is also one compilation of
+"decode_graph.<kind>" for util/device_stats.py (the card's counterpart
+of the reference's XLA recompile); the graphs run the unwrapped decoding
+functions, so no Python-side accounting runs inside a capture.
 """
 
 from __future__ import annotations
@@ -38,14 +41,15 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.decoding import (
-    Cache,
-    decode_multi_step,
-    decode_step,
-    rope_tables,
-)
+from ray_tpu_torch.models import decoding
+from ray_tpu_torch.models.decoding import Cache, rope_tables
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.ops._build import take_captured
+from ray_tpu_torch.util import device_stats
+
+# The eager functions behind decoding's compile-accounting wrappers.
+_decode_step = decoding.decode_step.__wrapped__
+_decode_multi_step = decoding.decode_multi_step.__wrapped__
 
 KINDS = ("decode_step", "decode_multi_step")
 
@@ -130,14 +134,14 @@ class DecodeGraphs:
 
     # -- eager bodies -------------------------------------------------------
     def _step(self, state: torch.Tensor, W: int) -> torch.Tensor:
-        logits, _ = decode_step(self.params, state[0], self.cache,
+        logits, _ = _decode_step(self.params, state[0], self.cache,
                                 self.tables[:, :W], state[1], state[2],
                                 self.config)
         return logits
 
     def _chunk(self, state: torch.Tensor, W: int, n: int,
                live: bool) -> torch.Tensor:
-        out, tokens, positions, ctx, _ = decode_multi_step(
+        out, tokens, positions, ctx, _ = _decode_multi_step(
             self.params, state[0], self.cache, self.tables[:, :W],
             state[1], state[2], state[3], state[4], self.config, n)
         if live:
@@ -152,18 +156,20 @@ class DecodeGraphs:
             return body(self.state, True)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(body)
+            entry = self._graphs[key] = self._capture(key, body)
         graph, out, launches = entry
         graph.replay()
         for kernel, n in launches.items():
             kernel.launches += n
         return out
 
-    def _capture(self, body) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor,
-                                      collections.Counter]:
+    def _capture(self, key: tuple, body
+                 ) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor,
+                            collections.Counter]:
         """Warm up `body` on a side stream over a dead copy of the state
         (every position -1: its K/V rows go to the scratch page and the
-        live state is not touched), then capture it over the live state.
+        live state is not touched), then capture it over the live state
+        and note the capture as a compilation of "decode_graph.<kind>".
         Returns (graph, its output, the launches of one replay)."""
         t0 = time.perf_counter()
         dead = self.state.clone()
@@ -179,6 +185,12 @@ class DecodeGraphs:
         with torch.cuda.graph(graph, pool=self._pool):
             out = body(self.state, True)
         launches = collections.Counter(take_captured())
+        seconds = time.perf_counter() - t0
         self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
+        self.capture_seconds += seconds
+        if device_stats.enabled():
+            kind, W, n = key
+            device_stats.note_compile(
+                f"decode_graph.{kind}", seconds,
+                [[self.tables.shape[0], W], n])
         return graph, out, launches

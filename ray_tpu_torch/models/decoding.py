@@ -66,6 +66,7 @@ from ray_tpu_torch.ops.paged_attention import (
     rope_write_token_rows,
     write_page_tokens,
 )
+from ray_tpu_torch.util import device_stats
 
 Cache = Dict[str, torch.Tensor]
 _ROPE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -465,3 +466,28 @@ def splice_kv_pages(cache: Cache, k_pages, v_pages, page_ids) -> Cache:
     kf.index_copy_(0, idx, k_pages.reshape(-1, *rest).to(kf.dtype))
     vf.index_copy_(0, idx, v_pages.reshape(-1, *rest).to(vf.dtype))
     return cache
+
+
+# Compile accounting, under the reference's names: each entry point's
+# first call per argument signature (shapes, dtypes, plain ints) counts
+# as one compilation (util/device_stats.py).  The decode graphs capture
+# the unwrapped decode_step / decode_multi_step (`__wrapped__`), so
+# nothing of this runs inside a capture; a capture is counted as one
+# compilation of "decode_graph.<kind>" instead.
+prefill = device_stats.count_compiles(prefill, "decoding.prefill")
+prefill_with_context = device_stats.count_compiles(
+    prefill_with_context, "decoding.prefill_with_context")
+verify_step = device_stats.count_compiles(
+    verify_step, "decoding.verify_step")
+decode_step = device_stats.count_compiles(
+    decode_step, "decoding.decode_step")
+decode_multi_step = device_stats.count_compiles(
+    decode_multi_step, "decoding.decode_multi_step")
+packed_prefill_admit = device_stats.count_compiles(
+    packed_prefill_admit, "decoding.packed_prefill_admit")
+merge_slot_state = device_stats.count_compiles(
+    merge_slot_state, "decoding.merge_slot_state")
+gather_kv_pages = device_stats.count_compiles(
+    gather_kv_pages, "decoding.gather_kv_pages")
+splice_kv_pages = device_stats.count_compiles(
+    splice_kv_pages, "decoding.splice_kv_pages")

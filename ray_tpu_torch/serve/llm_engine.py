@@ -30,16 +30,28 @@ through pinned memory, outputs come down into pinned memory behind an
 event, and the only wait is on the oldest chunk's event when it is
 reconciled.
 
-Not ported yet: the metrics, tracing, SLO-sample and device-stats hooks
-of the runtime.  The engine is synchronous and serves one replica;
-`add_request` / `step` / `generate` are its entry points.
+Observability, as the reference's: the serve metrics (requests, sheds,
+queue depth and wait, TTFT, TPOT, KV handoffs), per-request SLO samples
+(`slo_samples`), phase spans (serve.queue / serve.prefill or serve.import
+/ serve.decode) for requests that carry a `trace_ctx`, flight-recorder
+events for every shed, abort and handoff, the every-Nth-step sampler
+(`engine_sample`) with its roofline/MFU fields, and the HBM ledger's
+weights and kv_pages (util/).  Every hook reads host state only: no hook
+waits on the card, and none runs inside a graph capture.  Settings come
+from the reference's RAY_TPU_SERVE_* environment variables where a
+constructor argument is left None.
+
+The engine is synchronous and serves one replica; `add_request` /
+`step` / `generate` are its entry points.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -64,6 +76,44 @@ from ray_tpu_torch.models.decoding import (
     splice_kv_pages,
     verify_step,
 )
+from ray_tpu_torch.train.optim import tree_leaves
+from ray_tpu_torch.util import device_stats, flight_recorder, tracing
+from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+_REQUESTS = Counter(
+    "ray_tpu_serve_requests_total",
+    "Requests admitted into an LLMEngine queue.")
+_SHED = Counter(
+    "ray_tpu_serve_shed_total",
+    "Requests shed by engine admission control.",
+    tag_keys=("reason",))
+_QUEUE_DEPTH = Gauge(
+    "ray_tpu_serve_queue_depth",
+    "Requests waiting in the engine admission queue.")
+_KV_HANDOFF = Counter(
+    "ray_tpu_serve_kv_handoff_total",
+    "KV-page handoffs between prefill and decode replicas.",
+    tag_keys=("direction",))
+_KV_HANDOFF_BYTES = Counter(
+    "ray_tpu_serve_kv_handoff_bytes_total",
+    "KV page bytes moved by prefill->decode handoffs.",
+    tag_keys=("direction",))
+_HANDOFF_FALLBACK = Counter(
+    "ray_tpu_serve_handoff_fallback_total",
+    "Handoffs that fell back to re-prefill on the decode replica.",
+    tag_keys=("reason",))
+_QUEUE_WAIT = Histogram(
+    "ray_tpu_serve_queue_wait_seconds",
+    "Time a request spent in the engine admission queue, observed on "
+    "EVERY outcome: admitted into a slot, or shed while waiting.",
+    tag_keys=("outcome",))
+_TTFT = Histogram(
+    "ray_tpu_serve_ttft_seconds",
+    "Time to first generated token (enqueue to first token).")
+_TPOT = Histogram(
+    "ray_tpu_serve_tpot_seconds",
+    "Mean inter-token time after the first generated token.",
+    boundaries=(0.0001, 0.001, 0.01, 0.1, 1.0, 10.0))
 
 # Bundles keep only the newest export_on_finish captures.
 KV_READY_MAX = 32
@@ -87,6 +137,20 @@ class QueueFull(RuntimeError):
 class RequestShed(RuntimeError):
     """Raised to a waiter whose queued request was shed (queueing
     deadline passed, or the request was aborted) before completing."""
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 class PageAllocator:
@@ -238,6 +302,20 @@ class _Request:
     # Export the KV pages into kv_ready when the request finishes,
     # before its pages are freed.
     export_on_finish: bool = False
+    # Request-journey trace context (trace_id, parent_span_id); phase
+    # spans (serve.queue/prefill/decode) parent under it.  None =
+    # untraced.
+    trace_ctx: Optional[tuple] = None
+    # Phase timeline, epoch seconds (0.0 = not reached): enqueue into
+    # the waiting queue, seated into a slot, first generated token.
+    # The derived SLO sample (TTFT/TPOT/queue-wait) folds into
+    # slo_samples at finish.
+    t_enqueue: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    # Whether the request resumed from an imported KV bundle (its
+    # admission phase is a page splice, not a prefill).
+    imported: bool = False
 
 
 class LLMEngine:
@@ -247,7 +325,11 @@ class LLMEngine:
     params: the port's param dict (models/transformer.py), cast once to
     config.dtype; None draws random params from `seed` on the device.
     max_queue / queue_timeout_s / prefill_budget: admission control, 0
-    disables each.  multi_step, pipeline_depth, packed_admit,
+    disables each; None reads RAY_TPU_SERVE_MAX_QUEUE (1024),
+    RAY_TPU_SERVE_QUEUE_TIMEOUT_S (60) and RAY_TPU_SERVE_PREFILL_BUDGET
+    (8192).  RAY_TPU_SERVE_SLO_SAMPLES (256) bounds `slo_samples` and
+    RAY_TPU_SERVE_STEP_SAMPLE_EVERY (8; 0 disables) sets the sampler's
+    period, both read at construction.  multi_step, pipeline_depth, packed_admit,
     prefill_wave_tokens, prefill_row_tokens, speculative_k and
     speculative_ngram: the reference's modes, with its defaults
     (multi-step decoding and packed admission serve greedy requests;
@@ -263,8 +345,10 @@ class LLMEngine:
                  packed_admit: bool = True,
                  prefill_wave_tokens: int = 8192,
                  prefill_row_tokens: int = 1024,
-                 max_queue: int = 1024, queue_timeout_s: float = 60.0,
-                 prefill_budget: int = 8192, device: DeviceLike = None):
+                 max_queue: Optional[int] = None,
+                 queue_timeout_s: Optional[float] = None,
+                 prefill_budget: Optional[int] = None,
+                 device: DeviceLike = None):
         c = config
         self.device = resolve_device(device)
         self.config = c
@@ -343,15 +427,52 @@ class LLMEngine:
         # req_id -> serve_kv_export bundle captured at finish for
         # export_on_finish requests (oldest evicted past KV_READY_MAX).
         self.kv_ready: Dict[int, Dict[str, Any]] = {}
-        self.max_queue = int(max_queue)
-        self.queue_timeout_s = float(queue_timeout_s)
-        self.prefill_budget = int(prefill_budget)
+        self.max_queue = (_env_int("RAY_TPU_SERVE_MAX_QUEUE", 1024)
+                          if max_queue is None else int(max_queue))
+        self.queue_timeout_s = (
+            _env_float("RAY_TPU_SERVE_QUEUE_TIMEOUT_S", 60.0)
+            if queue_timeout_s is None else float(queue_timeout_s))
+        self.prefill_budget = (
+            _env_int("RAY_TPU_SERVE_PREFILL_BUDGET", 8192)
+            if prefill_budget is None else int(prefill_budget))
         self.num_shed = 0
         self.num_aborted = 0
         # Requests shed/aborted since the caller last drained this map
         # ({req_id: reason}).
         self.shed: Dict[int, str] = {}
         self._step_prefill_left = 1 << 30
+        # Per-request SLO samples (TTFT/TPOT/queue-wait), appended at
+        # finish (queue-wait-only at shed).
+        self.slo_samples: deque = deque(maxlen=max(
+            1, _env_int("RAY_TPU_SERVE_SLO_SAMPLES", 256)))
+        # Every Nth step snapshots batch occupancy, queue depth, free KV
+        # pages and the previous step's prefill-token spend into
+        # engine_sample (0 disables): host state, no device sync.
+        self._sample_every = _env_int(
+            "RAY_TPU_SERVE_STEP_SAMPLE_EVERY", 8)
+        self._step_count = 0
+        self.engine_sample: Optional[Dict[str, Any]] = None
+        # Device-plane attribution: modeled per-iteration traffic and
+        # per-token compute for the sampler's roofline/MFU, plus the HBM
+        # ledger's two resident pools.  A tensor two names share (a tied
+        # head) is counted once.
+        self._weight_bytes = sum({
+            t.data_ptr(): t.numel() * t.element_size()
+            for t in tree_leaves(self.params)}.values())
+        self._kv_per_token_bytes = (
+            2 * c.num_layers * c.num_kv_heads * c.head_dim_
+            * torch.empty((), dtype=c.dtype).element_size())
+        self._flops_per_token = 2 * tfm.num_params(c)
+        device_stats.attribute("weights", self._weight_bytes)
+        device_stats.attribute("kv_pages", sum(
+            v.numel() * v.element_size() for v in self.cache.values()))
+        self._finished_tokens = 0
+        # Decode iterations whose tokens have reached the host (a chunk
+        # counts its n steps, a prefill call or a wave one).
+        self._iterations = 0
+        self._last_sample_t: Optional[float] = None
+        self._last_sample_tokens = 0
+        self._last_sample_iterations = 0
 
     # -- public API --------------------------------------------------------
     def add_request(self, prompt_tokens: Sequence[int],
@@ -359,7 +480,8 @@ class LLMEngine:
                     temperature: float = 0.0,
                     eos_token: Optional[int] = None,
                     deadline_s: Optional[float] = None,
-                    export_on_finish: bool = False) -> int:
+                    export_on_finish: bool = False,
+                    trace_ctx: Optional[tuple] = None) -> int:
         if not prompt_tokens:
             raise ValueError("prompt must contain at least one token")
         if max_new_tokens < 1:
@@ -369,7 +491,7 @@ class LLMEngine:
         req = _Request(self._next_id, list(prompt_tokens), max_new_tokens,
                        temperature, eos_token=eos_token,
                        export_on_finish=export_on_finish)
-        self._enqueue(req, deadline_s)
+        self._enqueue(req, deadline_s, trace_ctx)
         return req.req_id
 
     def _check_fits(self, prompt_len: int, max_new_tokens: int) -> None:
@@ -386,19 +508,32 @@ class LLMEngine:
                 f"{self.allocator.num_pages - 1} allocatable; raise "
                 "num_pages or shorten the request")
 
-    def _enqueue(self, req: _Request, deadline_s: Optional[float]) -> None:
+    def _enqueue(self, req: _Request, deadline_s: Optional[float],
+                 trace_ctx: Optional[tuple]) -> None:
         """Queue a checked request (QueueFull past max_queue)."""
         if self.max_queue > 0 and len(self.waiting) >= self.max_queue:
+            # Backpressure instead of unbounded queue growth: shedding
+            # at the door is the one point where the caller can still
+            # retry another replica.
             self.num_shed += 1
+            _SHED.inc(tags={"reason": "queue_full"})
+            flight_recorder.record("serve", "queue_full",
+                                   waiting=len(self.waiting),
+                                   max_queue=self.max_queue)
             raise QueueFull(
                 f"admission queue full ({len(self.waiting)} waiting, "
                 f"cap {self.max_queue})")
+        if trace_ctx:
+            req.trace_ctx = tuple(trace_ctx)
+        req.t_enqueue = time.time()
         req.enqueued_at = time.monotonic()
         ttl = self.queue_timeout_s if deadline_s is None else deadline_s
         if ttl and ttl > 0:
             req.deadline = req.enqueued_at + ttl
         self._next_id += 1
         self.waiting.append(req)
+        _REQUESTS.inc()
+        _QUEUE_DEPTH.set(len(self.waiting))
 
     def abort(self, req_id: int, reason: str = "aborted") -> bool:
         """Cancel a request wherever it is (waiting or active) and
@@ -409,6 +544,7 @@ class LLMEngine:
             if req.req_id == req_id:
                 self.waiting.pop(i)
                 self._retire_unstarted(req, reason)
+                _QUEUE_DEPTH.set(len(self.waiting))
                 return True
         for slot, req in enumerate(self.slot_req):
             if req is not None and req.req_id == req_id:
@@ -422,6 +558,8 @@ class LLMEngine:
                 self._dirty_slots.add(slot)
                 self.num_aborted += 1
                 self.shed[req_id] = reason
+                flight_recorder.record("serve", "abort", req_id=req_id,
+                                       reason=reason, slot=slot)
                 return True
         return False
 
@@ -478,13 +616,19 @@ class LLMEngine:
             "v": v,
         }
         self.kv_exports += 1
+        nbytes = k.nbytes + v.nbytes
+        _KV_HANDOFF.inc(tags={"direction": "export"})
+        _KV_HANDOFF_BYTES.inc(nbytes, tags={"direction": "export"})
+        flight_recorder.record("serve", "kv_export", req_id=req.req_id,
+                               pages=n_ctx, bytes=nbytes)
         return bundle
 
     def import_kv(self, bundle: Dict[str, Any],
                   max_new_tokens: int = 32, *,
                   temperature: float = 0.0,
                   eos_token: Optional[int] = None,
-                  deadline_s: Optional[float] = None) -> int:
+                  deadline_s: Optional[float] = None,
+                  trace_ctx: Optional[tuple] = None) -> int:
         """Enqueue a request resuming from an exported KV bundle (the
         decode side of a handoff), with add_request's admission contract
         (bounds checks, QueueFull, deadlines); the pages are spliced in
@@ -530,17 +674,104 @@ class LLMEngine:
         req = _Request(self._next_id, prompt, max_new_tokens, temperature,
                        generated=generated, eos_token=eos_token)
         req.kv_bundle = bundle
+        req.imported = True
         keys = bundle.get("chain_keys")
         if keys:
             req.chain_keys = [bytes(k) for k in keys]
-        self._enqueue(req, deadline_s)
+        self._enqueue(req, deadline_s, trace_ctx)
         return req.req_id
 
     def _retire_unstarted(self, req: _Request, reason: str) -> None:
         """Drop a request that never reached a slot (shed or aborted
-        while waiting): it holds no pages and no prefix-cache refs."""
+        while waiting): it holds no pages and no prefix-cache refs, so
+        this is queue bookkeeping, its queue-wait SLO sample, the
+        partial serve.queue span of a traced request, and a flight
+        recorder event."""
         self.num_shed += 1
         self.shed[req.req_id] = reason
+        _SHED.inc(tags={"reason": reason})
+        now = time.time()
+        waited = (time.monotonic() - req.enqueued_at
+                  if req.enqueued_at else 0.0)
+        # Queue wait is observed on EVERY outcome, sheds included, so
+        # the histogram reflects what waiting requests experienced.
+        _QUEUE_WAIT.observe(max(0.0, waited), tags={"outcome": "shed"})
+        self.slo_samples.append({
+            "queue_wait": round(max(0.0, waited), 6),
+            "shed": reason, "ts": now})
+        if req.trace_ctx is not None:
+            tracing.record_span(
+                "serve.queue", req.t_enqueue or now - waited, now,
+                attributes={"req": req.req_id, "shed": reason,
+                            "clock_off": round(tracing.clock_offset(),
+                                               6)},
+                parent_id=req.trace_ctx[1] or None,
+                trace_id=req.trace_ctx[0], force=True)
+        flight_recorder.record(
+            "serve", "shed", req_id=req.req_id, reason=reason,
+            waited_s=round(waited, 3) if req.enqueued_at else 0.0)
+
+    def _note_admitted(self, req: _Request) -> None:
+        """Seat-time bookkeeping shared by every admission path
+        (classic _admit, KV import, packed wave): the queue-wait
+        histogram plus the serve.queue phase span of traced requests."""
+        now = time.time()
+        req.t_admit = now
+        waited = (time.monotonic() - req.enqueued_at
+                  if req.enqueued_at else 0.0)
+        _QUEUE_WAIT.observe(max(0.0, waited),
+                            tags={"outcome": "admitted"})
+        if req.trace_ctx is not None:
+            tracing.record_span(
+                "serve.queue", req.t_enqueue or now - waited, now,
+                attributes={"req": req.req_id,
+                            "clock_off": round(tracing.clock_offset(),
+                                               6)},
+                parent_id=req.trace_ctx[1] or None,
+                trace_id=req.trace_ctx[0], force=True)
+
+    def _stamp_first(self, req: _Request) -> None:
+        """First generated token (or KV splice done): closes the
+        prefill/import phase.  Idempotent.  Pipelined, a wave's first
+        token is stamped when its record is reconciled."""
+        if req.t_first:
+            return
+        req.t_first = time.time()
+        if req.trace_ctx is not None and req.t_admit:
+            tracing.record_span(
+                "serve.import" if req.imported else "serve.prefill",
+                req.t_admit, req.t_first,
+                attributes={"req": req.req_id,
+                            "prompt_tokens": len(req.prompt)},
+                parent_id=req.trace_ctx[1] or None,
+                trace_id=req.trace_ctx[0], force=True)
+
+    def _note_finished(self, req: _Request) -> None:
+        """Finish-time SLO accounting: TTFT/TPOT histograms, the SLO
+        sample ring, and the decode phase span of traced requests."""
+        now = time.time()
+        if not req.t_first:
+            req.t_first = now
+        ttft = (max(0.0, req.t_first - req.t_enqueue)
+                if req.t_enqueue else 0.0)
+        n_out = len(req.generated)
+        tpot = (max(0.0, now - req.t_first) / (n_out - 1)
+                if n_out > 1 else 0.0)
+        qwait = (max(0.0, (req.t_admit or req.t_first) - req.t_enqueue)
+                 if req.t_enqueue else 0.0)
+        _TTFT.observe(ttft)
+        _TPOT.observe(tpot)
+        self._finished_tokens += n_out
+        self.slo_samples.append({
+            "ttft": round(ttft, 6), "tpot": round(tpot, 6),
+            "queue_wait": round(qwait, 6), "tokens": n_out, "ts": now})
+        if req.trace_ctx is not None:
+            tracing.record_span(
+                "serve.decode", req.t_first, now,
+                attributes={"req": req.req_id, "tokens": n_out,
+                            "tpot": round(tpot, 6)},
+                parent_id=req.trace_ctx[1] or None,
+                trace_id=req.trace_ctx[0], force=True)
 
     def _shed_expired(self) -> None:
         """Drop waiting requests whose queueing deadline passed."""
@@ -554,6 +785,58 @@ class LLMEngine:
             else:
                 kept.append(req)
         self.waiting = kept
+        _QUEUE_DEPTH.set(len(self.waiting))
+
+    def _sample_device(self, sample: Dict[str, Any]) -> None:
+        """Device-plane extension of the every-Nth-step sampler: the
+        tokens that reached the host since the last sample, over the
+        host time between the two, against the modeled bytes and flops
+        behind them: continuous roofline/MFU gauges, a `device.step`
+        span (when tracing is on) and fields of engine_sample.  Host
+        math on values the engine already tracks: no device sync.
+
+        The port departs from the reference's byte model, which divides
+        one iteration's bytes by the slots active at the sample: when
+        slots finish within the window (or, pipelined, when chunks of a
+        fuller batch are reconciled after it has shrunk) that inflates
+        the bytes per token, and the fraction passes 1.0.  Here the
+        window's bytes are its iterations' (each streams the weights
+        and the live KV context), over the tokens they produced."""
+        now = sample["ts"]
+        total = self._finished_tokens + sum(
+            len(r.generated) for r in self.slot_req if r is not None)
+        prev_t, prev_tok = self._last_sample_t, self._last_sample_tokens
+        prev_it = self._last_sample_iterations
+        self._last_sample_t, self._last_sample_tokens = now, total
+        self._last_sample_iterations = self._iterations
+        if not device_stats.enabled() or prev_t is None \
+                or now <= prev_t:
+            return
+        try:
+            tokens = max(0, total - prev_tok)
+            tok_s = tokens / (now - prev_t)
+            live_ctx = int(self.context_lens.sum())
+            window_bytes = (self._iterations - prev_it) * (
+                self._weight_bytes + live_ctx * self._kv_per_token_bytes)
+            bytes_per_token = window_bytes / max(1, tokens)
+            frac, mfu = device_stats.note_step(
+                tokens_per_s=tok_s, bytes_per_token=bytes_per_token,
+                flops_per_token=self._flops_per_token, plane="serve",
+                extra={"active": sample["active"],
+                       "step": sample["step"]})
+            sample["tokens_per_s"] = round(tok_s, 2)
+            sample["roofline_fraction"] = round(frac, 5)
+            sample["mfu"] = round(mfu, 5)
+            sample["modeled_bytes_per_token"] = int(bytes_per_token)
+            tracing.record_span(
+                "device.step", prev_t, now,
+                attributes={"plane": "serve",
+                            "tokens_per_s": round(tok_s, 2),
+                            "roofline_fraction": round(frac, 5),
+                            "mfu": round(mfu, 5),
+                            "active": sample["active"]})
+        except Exception:  # raylint: allow-swallow(telemetry must never fail an engine step)
+            pass
 
     @property
     def num_active(self) -> int:
@@ -574,6 +857,27 @@ class LLMEngine:
         if self._pending_done:
             done.update(self._pending_done)
             self._pending_done.clear()
+        self._step_count += 1
+        if self._sample_every > 0 \
+                and self._step_count % self._sample_every == 0:
+            # Snapshot BEFORE this step's work: _step_prefill_left still
+            # holds the previous step's remainder, so prefill_tokens is
+            # that step's actual prompt-token spend.
+            budget = (self.prefill_budget
+                      if self.prefill_budget > 0 else 0)
+            self.engine_sample = {
+                "ts": time.time(),
+                "step": self._step_count,
+                "active": self.num_active,
+                "waiting": len(self.waiting),
+                "free_pages": self.allocator.num_free,
+                "inflight_chunks": len(self._inflight),
+                "prefill_tokens": (
+                    max(0, budget - min(self._step_prefill_left,
+                                        budget)) if budget else 0),
+                "completed": self.num_completed,
+            }
+            self._sample_device(self.engine_sample)
         self._shed_expired()
         self._step_prefill_left = (self.prefill_budget
                                    if self.prefill_budget > 0
@@ -733,6 +1037,7 @@ class LLMEngine:
             self._step_prefill_left = max(
                 0, self._step_prefill_left - n_suffix)
             self.waiting.pop(0)
+            self._note_admitted(req)
             req.pages = self._alloc_evicting(n_private)
             pages = shared + req.pages
             self._seat(req, free.pop(0), pages)
@@ -772,6 +1077,7 @@ class LLMEngine:
             logits, self.cache = prefill(self.params, tokens, positions,
                                          self.cache, tables, self.config)
             logits = logits.cpu().numpy()  # one sync for the whole group
+            self._iterations += 1
             for r, item in enumerate(items):
                 self._finish_admit(item, logits[r], done)
 
@@ -793,6 +1099,7 @@ class LLMEngine:
             logits, self.cache = prefill_with_context(
                 self.params, tokens, positions, self.cache, table,
                 self.config)
+            self._iterations += 1
             self._finish_admit(item, logits.cpu().numpy()[0], done)
         return done
 
@@ -813,6 +1120,7 @@ class LLMEngine:
         self.context_lens[req.slot] = L
         self.last_tokens[req.slot] = next_tok
         req.generated.append(int(next_tok))
+        self._stamp_first(req)
         self._just_admitted.add(req.slot)  # the pipelined path merges it
         fin = self._maybe_finish(req)
         if fin is not None:  # e.g. max_new_tokens == 1
@@ -850,6 +1158,7 @@ class LLMEngine:
                 req.cache_keys = []
             return False
         self.waiting.pop(0)
+        self._note_admitted(req)
         slot = free.pop(0)
         req.pages = self._alloc_evicting(n_private)
         pages = shared + req.pages
@@ -859,9 +1168,11 @@ class LLMEngine:
         # to the scratch page).  Pages 0..n_shared-1 already hold the
         # same KV locally through the prefix cache.
         n_splice = n_ctx - n_shared
+        nbytes = 0
         if n_splice > 0:
             k = np.asarray(bundle["k"])[:, n_shared:n_ctx]
             v = np.asarray(bundle["v"])[:, n_shared:n_ctx]
+            nbytes = k.nbytes + v.nbytes
             N = 1 << (n_splice - 1).bit_length()
             ids = np.full(N, -1, dtype=np.int32)
             ids[:n_splice] = pages[n_shared:n_ctx]
@@ -880,9 +1191,16 @@ class LLMEngine:
 
         self.context_lens[slot] = ctx
         self.last_tokens[slot] = req.generated[-1]
+        self._stamp_first(req)  # splice done; tokens already exist
         self._just_admitted.add(slot)
         self.kv_imports += 1
+        _KV_HANDOFF.inc(tags={"direction": "import"})
+        _KV_HANDOFF_BYTES.inc(nbytes, tags={"direction": "import"})
+        flight_recorder.record(
+            "serve", "kv_import", req_id=req.req_id, pages=n_splice,
+            shared_pages=n_shared, bytes=nbytes)
         req.kv_bundle = None  # release the page arrays
+        _QUEUE_DEPTH.set(len(self.waiting))
         fin = self._maybe_finish(req)
         if fin is not None:
             done[req.req_id] = fin
@@ -963,6 +1281,7 @@ class LLMEngine:
             if total > self._available_pages():
                 break  # backpressure: wait for pages
             self.waiting.pop(0)
+            self._note_admitted(req)
             req.slot = free.pop(0)
             req.pages = self._alloc_evicting(total)
             if self.prefix_cache is not None and req.chain_keys:
@@ -1146,6 +1465,7 @@ class LLMEngine:
         if ch.get("type") == "prefill":
             self.prefill_reconciles += 1
             first = read(ch["first"], ch["event"])
+            self._iterations += 1
             for i, req in enumerate(ch["segs"]):
                 if self.slot_req[req.slot] is not req:
                     continue
@@ -1154,12 +1474,14 @@ class LLMEngine:
                 # classic path resumes decoding from last_tokens.
                 self.last_tokens[req.slot] = tok
                 req.generated.append(tok)
+                self._stamp_first(req)
                 fin = self._maybe_finish(req)
                 if fin is not None:
                     done[req.req_id] = fin
                     self._dirty_slots.add(req.slot)
             return
         toks = read(ch["out"], ch["event"])
+        self._iterations += ch["n"]
         for slot, req in ch["snapshot"].items():
             if self.slot_req[slot] is not req:
                 continue  # finished in an earlier record; rows are -1
@@ -1245,6 +1567,7 @@ class LLMEngine:
         logits, self.cache = verify_step(self.params, tokens, positions,
                                          self.cache, tables, self.config)
         preds_all = logits.argmax(dim=-1).cpu().numpy()
+        self._iterations += 1
 
         advanced: Dict[int, List[int]] = {}
         for r, ((slot, req, draft), n_chunk) in enumerate(
@@ -1317,6 +1640,7 @@ class LLMEngine:
         upload(self.graphs.tables, self.block_tables)
         logits = self.graphs.decode_step(
             self._table_width(int(ctx.max(initial=1)))).cpu().numpy()
+        self._iterations += 1
         for slot, req in enumerate(self.slot_req):
             if req is None or slot in spec_slots:
                 continue  # spec slots already advanced this step
@@ -1363,6 +1687,7 @@ class LLMEngine:
                     # Shared/registered prompt pages stay cached
                     # (evictable once unreferenced).
                     self.prefix_cache.release(req.cache_keys)
+            self._note_finished(req)
             self.num_completed += 1
             return req.generated
         self.slot_req[req.slot] = req

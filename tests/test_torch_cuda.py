@@ -40,6 +40,7 @@ tce = importlib.import_module(f"{PORT}.ops.fused_ce")
 tts = importlib.import_module(f"{PORT}.train.train_state")
 toptim = importlib.import_module(f"{PORT}.train.optim")
 _build = importlib.import_module(f"{PORT}.ops._build")
+tds = importlib.import_module(f"{PORT}.util.device_stats")
 
 pytestmark = pytest.mark.cuda
 
@@ -910,6 +911,45 @@ def test_pipelined_engine_equals_classic_on_card(cuda):
     spec = _card_engine(cuda, speculative_k=4)
     assert spec.generate(prompts, 12) == want
     assert spec.spec_steps > 0
+
+
+def test_device_stats_on_card(cuda, monkeypatch):
+    """The pipelined engine with the step sampler on: the ledger reads
+    "cuda" with torch's device name and the engine's pools, the decode
+    graphs' captures are the compile counts, and sampled steps have a
+    roofline fraction above 0 and at most 1 against the card's peak."""
+    monkeypatch.setenv("RAY_TPU_SERVE_STEP_SAMPLE_EVERY", "2")
+    tds.reset()
+    tds.set_enabled(True)
+    rng = np.random.default_rng(8)
+    eng = _card_engine(cuda, multi_step=4)
+    for n in (12, 30, 5, 17):
+        eng.add_request(rng.integers(0, 128, size=n).tolist(), 24)
+    samples = []
+    while eng.has_work():
+        eng.step()
+        s = eng.engine_sample
+        if s is not None and (not samples or s is not samples[-1]):
+            samples.append(s)
+    led = tds.ledger()
+    assert led["backend"] == "cuda"
+    assert led["device_kind"] == torch.cuda.get_device_name(0)
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    weights, kv = nbytes(eng.params), nbytes(eng.cache)
+    assert led["components"] == {"weights": weights, "kv_pages": kv}
+    assert led["used_bytes"] >= weights + kv
+    captured = sum(v["count"] for k, v in tds.compile_counts().items()
+                   if k.startswith("decode_graph."))
+    assert captured == eng.graphs.captures > 0
+    fracs = [s["roofline_fraction"] for s in samples
+             if s.get("tokens_per_s", 0) > 0]
+    assert fracs and all(0 < f <= 1 for f in fracs), fracs
+    assert tds.last_step()["plane"] == "serve"
+    tds.reset()
 
 
 def _moe_card_engine(cuda, **kw):

@@ -495,7 +495,16 @@ def test_bench_run_once_on_cpu():
     assert np.isfinite(loss) and tok_s > 0 and mfu > 0
 
 
-def test_bench_peak_table():
+def test_bench_peak_table(monkeypatch):
+    """The bench reads its peak from device_stats' table, by torch's
+    device name, longest key first."""
     assert tbench._peak_flops(torch.device("cpu")) == 1e12
-    assert tbench._PEAK_FLOPS["h100"] == 989e12
-    assert tbench._PEAK_FLOPS["h100pcie"] == 756e12
+    for name, peak in (("NVIDIA H100 80GB HBM3", 989e12),
+                       ("NVIDIA H100 PCIe", 756e12)):
+        monkeypatch.setattr(torch.cuda, "get_device_name",
+                            lambda device=None, name=name: name)
+        assert tbench._peak_flops(torch.device("cuda")) == peak
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "Some Other GPU")
+    with pytest.raises(ValueError):
+        tbench._peak_flops(torch.device("cuda"))
