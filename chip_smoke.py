@@ -115,7 +115,24 @@ Phases, each of which raises (exit code != 0) if it fails:
  10. the training kernels' times at the training shape beside their
      bounds, achieved TFLOP/s and PR 2's times, the plain backward's time
      and one PyTorch backward of the same attention; the older forward,
-     dq and dk/dv kernels are timed beside the Hopper ones.
+     dq and dk/dv kernels are timed beside the Hopper ones;
+ 11. the port's own runtime (`[runtime]`), after the training phases
+     free the card: nvidia-smi and `df /dev/shm`; init(num_cpus=4) with
+     the GPU detected (count = torch's, `accelerator_type:` naming the
+     card) by a probe that leaves CUDA uninitialized; a CPU task that
+     sees no card and a num_gpus=1 task that sees the driver's; one
+     Llama-2-7B layer's bf16 weights (404,750,336 bytes) put as CUDA
+     tensors, read and returned by a num_gpus=1 task and held bit for
+     bit, with the device-to-arena and arena-to-device GB/s; [main]'s 12
+     requests through an LLMEngine built inside a num_gpus=1 actor
+     (weights from seed 0 in the actor, every graph captured up front),
+     its streams equal to [main]'s and its kernel launches too, with its
+     start, weight-init and generation times and peak memory; a
+     torch_trace of the idle actor, which must say it recorded no CUDA
+     event, then one while it decodes, taken through the control plane's
+     profile op, that names the paged decode kernel;
+     shutdown() leaving no worker and the card's used memory at the
+     driver's own.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -136,9 +153,11 @@ import sys
 import time
 
 import numpy as np
+import psutil
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch as rtt
 from ray_tpu_torch import bench as tbench
 from ray_tpu_torch.models import decode_graph as tdg
 from ray_tpu_torch.models import decoding as tdec
@@ -804,7 +823,8 @@ def phase_main_path(dev, params, cfg):
           f"{eng.prefix_cache.tokens_saved}); prefill {admit_s[0]:.3f} s, "
           f"decode {decode_tokens[0]} tokens in {decode_s[0]:.3f} s")
     print(f"[main] launches {json.dumps(launches)}")
-    return launches, eng, prompts, max_new, rates
+    streams = [done[rid] for rid in ids]
+    return launches, eng, prompts, max_new, rates, streams
 
 
 def phase_depth_bf16(dev, params, cfg):
@@ -2480,6 +2500,284 @@ def phase_timings_train(dev, smi):
     return out_rows
 
 
+# ---------------------------------------------------------------------------
+# [runtime]: the main path inside a num_gpus=1 actor of the port's runtime
+
+# One Llama-2-7B layer's weight matrices: 4 x 4096^2 + 3 x 4096 x 11008 =
+# 202,375,168 bf16 params, 404,750,336 bytes.
+LAYER_SHAPES = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
+                "wo": (4096, 4096), "w_gate": (4096, 11008),
+                "w_up": (4096, 11008), "w_down": (11008, 4096)}
+LAYER_BYTES = 404_750_336
+# [main]'s engine settings.
+MAIN_ENGINE = dict(page_size=128, num_pages=96, max_batch=8)
+# The card's used memory after shutdown may exceed the driver's own before
+# init by no more than this (allocator and lazily loaded module slack).
+USED_SLACK = 256 << 20
+
+
+class EngineServer:
+    """[main]'s engine inside an actor: Llama-2-7B at full width with
+    random bf16 weights from seed 0, built on the actor's card."""
+
+    def __init__(self, engine_kw):
+        t0 = time.perf_counter()
+        cfg = TransformerConfig.llama2_7b()
+        params = init_params(cfg, seed=0, device="cuda",
+                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        self.eng = LLMEngine(cfg, params, device="cuda", **engine_kw)
+        # Every decode graph now: a capture synchronizes the card, and so
+        # does a profiler's stop, from another thread (see generate).
+        t0 = time.perf_counter()
+        self.captured = self.eng.graphs.capture_all()
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+        self.steps = 0
+
+    def info(self):
+        return dict(init_s=self.init_s, capture_s=self.capture_s,
+                    captured=self.captured, pid=os.getpid(),
+                    worker=rtt.get_runtime_context().worker_id,
+                    gpu_ids=rtt.get_gpu_ids(),
+                    card=torch.cuda.get_device_name(0))
+
+    def progress(self):
+        return self.steps
+
+    def generate(self, prompts, max_new):
+        kernels = {"paged_decode_attention": tpa.PAGED_DECODE,
+                   "rope_row_write": tpa.ROPE_ROW_WRITE,
+                   "row_write": tpa.ROW_WRITE,
+                   "flash_fwd_sm90": tat.FLASH_FWD_SM90,
+                   "flash_fwd": tat.FLASH_FWD}
+        for k in kernels.values():
+            k.launches = 0
+        captures = self.eng.graphs.captures
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ids = [self.eng.add_request(p, n) for p, n in zip(prompts, max_new)]
+        done = {}
+        while self.eng.has_work():
+            done.update(self.eng.step())
+            self.steps += 1
+        torch.cuda.synchronize()
+        return dict(streams=[done.get(rid) for rid in ids],
+                    gen_s=time.perf_counter() - t0, steps=self.steps,
+                    launches={n: k.launches for n, k in kernels.items()},
+                    new_captures=self.eng.graphs.captures - captures,
+                    peak=torch.cuda.max_memory_allocated())
+
+
+def process_alive(pid: int) -> bool:
+    try:
+        return psutil.Process(pid).status() != psutil.STATUS_ZOMBIE
+    except psutil.NoSuchProcess:
+        return False
+
+
+def device_used_bytes() -> int:
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def cpu_probe():
+    return dict(cuda=torch.cuda.is_available(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                gpu_ids=rtt.get_gpu_ids(), pid=os.getpid())
+
+
+def gpu_probe():
+    from ray_tpu_torch.core.resources import detect_gpus
+
+    # The probe first, in a process that has not touched CUDA yet.
+    n = detect_gpus()
+    initialized_by_probe = torch.cuda.is_initialized()
+    return dict(detected=n, initialized_by_probe=initialized_by_probe,
+                card=torch.cuda.get_device_name(0),
+                gpu_ids=rtt.get_gpu_ids(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                pid=os.getpid())
+
+
+def roundtrip(layer):
+    """Read a dict of CUDA tensors on this worker's card and return it."""
+    return dict(devices=sorted({str(t.device) for t in layer.values()}),
+                layer=layer)
+
+
+def phase_runtime(smi, prompts, max_new, streams_main, launches_main,
+                  main_captures, cfg_layers):
+    tag = "[runtime]"
+    shm = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"{tag} {smi}; df -B1 /dev/shm: " + " | ".join(shm.splitlines()))
+    used0 = device_used_bytes()
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    drv = rtt.init(num_cpus=4, log_to_driver=True)
+    res = rtt.cluster_resources()
+    print(f"{tag} init(num_cpus=4) in {time.perf_counter() - t0:.2f} s; "
+          f"cluster_resources {json.dumps(res)}")
+    check(res.get("GPU") == torch.cuda.device_count(),
+          f"GPU resource {res.get('GPU')} != {torch.cuda.device_count()}")
+    acc = [k.split(":", 1)[1] for k in res if k.startswith("accelerator_type:")]
+    check(len(acc) == 1 and acc[0] in name.split(),
+          f"accelerator_type resource {acc} does not name {name!r}")
+    worker_pids = set()
+    try:
+        t0 = time.perf_counter()
+        cpu = rtt.get(rtt.remote(num_cpus=1)(cpu_probe).remote(), timeout=300)
+        print(f"{tag} CPU task ({time.perf_counter() - t0:.2f} s, spawn "
+              f"included): cuda available {cpu['cuda']}, "
+              f"CUDA_VISIBLE_DEVICES={cpu['visible']!r}, gpu ids "
+              f"{cpu['gpu_ids']}")
+        check(cpu["cuda"] is False and cpu["gpu_ids"] == [],
+              "a CPU task sees a card")
+        t0 = time.perf_counter()
+        gpu = rtt.get(rtt.remote(num_gpus=1)(gpu_probe).remote(), timeout=300)
+        print(f"{tag} num_gpus=1 task ({time.perf_counter() - t0:.2f} s, "
+              f"spawn included): {json.dumps(gpu)}")
+        check(gpu["card"] == name and gpu["gpu_ids"] == list(
+            range(torch.cuda.device_count())), f"GPU task saw {gpu}")
+        check(gpu["detected"] == torch.cuda.device_count()
+              and not gpu["initialized_by_probe"],
+              "the GPU probe miscounted or initialized CUDA")
+        worker_pids |= {cpu["pid"], gpu["pid"]}
+
+        # The object plane with a CUDA tensor dict at full width.
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        layer = {k: torch.randn(s, generator=gen, device="cuda").to(
+            torch.bfloat16) for k, s in LAYER_SHAPES.items()}
+        nbytes = sum(t.numel() * t.element_size() for t in layer.values())
+        check(nbytes == LAYER_BYTES, f"layer holds {nbytes} bytes")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = rtt.put(layer)
+        put_s = time.perf_counter() - t0
+        back_ref = rtt.remote(num_gpus=1)(roundtrip).remote(ref)
+        rtt.wait([back_ref], timeout=300)
+        t0 = time.perf_counter()
+        back = rtt.get(back_ref, timeout=300)
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        same = all(back["layer"][k].is_cuda and torch.equal(
+            back["layer"][k].view(torch.int16), layer[k].view(torch.int16))
+            for k in layer)
+        print(f"{tag} put of one Llama-2-7B layer as bf16 CUDA tensors, "
+              f"{nbytes:,} bytes: device-to-arena {put_s * 1e3:.1f} ms, "
+              f"{nbytes / put_s / 1e9:.2f} GB/s; a num_gpus=1 task read it "
+              f"on {back['devices']} and returned it; get arena-to-device "
+              f"{get_s * 1e3:.1f} ms, {nbytes / get_s / 1e9:.2f} GB/s "
+              f"(host clock, single call; {smi}); bit for bit {same}")
+        check(same and back["devices"] == ["cuda:0"],
+              "the CUDA dict did not come back bit for bit on the card")
+        del layer, back, ref, back_ref
+
+        # The main path through the runtime.
+        t0 = time.perf_counter()
+        actor = rtt.remote(num_gpus=1, max_concurrency=2)(
+            EngineServer).remote(MAIN_ENGINE)
+        info = rtt.get(actor.info.remote(), timeout=600)
+        start_s = time.perf_counter() - t0
+        worker_pids.add(info["pid"])
+        t0 = time.perf_counter()
+        first = drv.core.client.call(
+            {"op": "profile_worker", "worker_hex": info["worker"],
+             "kind": "torch_trace", "duration_s": 0.2, "timeout_s": 300.0},
+            timeout=330)
+        print(f"{tag} the actor's first torch_trace (0.2 s, idle): "
+              f"{time.perf_counter() - t0:.2f} s, returned {first!r}")
+        check(isinstance(first, str)
+              and first.startswith("profile failed: no CUDA event in "),
+              "a trace of the idle actor was not flagged as holding no "
+              "CUDA event")
+        print(f"{tag} num_gpus=1 actor on {info['card']} (gpu ids "
+              f"{info['gpu_ids']}): ready {start_s:.2f} s after creation "
+              f"(worker start, weights, engine, graphs); weight init "
+              f"{info['init_s']:.2f} s; {info['captured']} decode graphs "
+              f"captured up front in {info['capture_s']:.2f} s")
+        out = rtt.get(actor.generate.remote(prompts, max_new), timeout=600)
+        equal = out["streams"] == streams_main
+        print(f"{tag} actor generated [main]'s {len(prompts)} requests in "
+              f"{out['gen_s']:.2f} s (its first run, untraced; "
+              f"{out['steps']} steps, {out['new_captures']} captures during "
+              f"the run), peak memory {out['peak'] / 2**30:.2f} GiB "
+              f"(max_memory_allocated); streams equal to [main]'s: {equal}; "
+              f"launches {json.dumps(out['launches'])}")
+        if not equal:
+            diff = [i for i, (a, b) in enumerate(
+                zip(out["streams"], streams_main)) if a != b]
+            print(f"{tag} streams that differ: {diff}")
+        check(equal, "the actor's streams differ from [main]'s")
+        # The same requests once more, traced through the control plane's
+        # profile op once the engine is decoding.  The actor's first
+        # profile session (taken while it was idle, above) records no CUDA
+        # event; later ones record every kernel (core/runtime.py).
+        steps0 = out["steps"]
+        gen_ref = actor.generate.remote(prompts, max_new)
+        deadline = time.time() + 600
+        while rtt.get(actor.progress.remote(), timeout=60) < steps0 + 4:
+            check(time.time() < deadline, "the actor never started decoding")
+            time.sleep(0.05)
+        # timeout_s: the head's wait (default: the window + 30 s) also
+        # covers writing the trace, tens of MB for a decoding engine.
+        t0 = time.perf_counter()
+        trace = drv.core.client.call(
+            {"op": "profile_worker", "worker_hex": info["worker"],
+             "kind": "torch_trace", "duration_s": 0.5, "timeout_s": 300.0},
+            timeout=330)
+        trace_s = time.perf_counter() - t0
+        traced = rtt.get(gen_ref, timeout=600)
+        check(isinstance(trace, str) and os.path.isfile(trace),
+              f"torch_trace gave {trace!r}")
+        with open(trace) as f:
+            text = f.read()
+        hits = text.count("paged_decode_kernel")
+        print(f"{tag} torch_trace of the actor through the control plane "
+              f"(0.5 s while its second run decoded; the call {trace_s:.2f}"
+              f" s, the run {traced['gen_s']:.2f} s traced): "
+              f"{len(text):,} bytes, {hits} paged_decode_kernel events")
+        # [main] captured its graphs lazily, and each capture's warm-up
+        # ran one eager decode step (counted); the actor captured every
+        # graph before its counts were zeroed.
+        for k, n in out["launches"].items():
+            warm = (main_captures * cfg_layers
+                    if k in ("paged_decode_attention", "rope_row_write")
+                    else 0)
+            check(n == launches_main[k] - warm,
+                  f"{k}: {n} launches in the actor, {launches_main[k]} in "
+                  f"[main] with {warm} in its {main_captures} warm-ups")
+        for k in SERVE_KERNELS:
+            check(out["launches"][k] > 0, f"{k} never ran in the actor")
+        check(hits > 0, "the trace does not name the paged decode kernel")
+        del actor
+        for w in drv.control.workers.values():
+            if w.pid and w.kind != "driver":
+                worker_pids.add(w.pid)
+    finally:
+        t0 = time.perf_counter()
+        rtt.shutdown()
+        print(f"{tag} shutdown in {time.perf_counter() - t0:.2f} s")
+    deadline = time.time() + 30
+    left = worker_pids
+    while True:
+        left = {p for p in left if process_alive(p)}
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"workers left after shutdown: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used1 = device_used_bytes()
+    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
+          f"used {used0 / 2**30:.2f} GiB before init, "
+          f"{used1 / 2**30:.2f} GiB after shutdown")
+    check(used1 <= used0 + USED_SLACK,
+          "the card's used memory did not return to the driver's own")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2498,13 +2796,14 @@ def main() -> int:
     print(f"[main] Llama-2-7B random bf16 weights: {num_params(cfg):,} "
           f"params in {time.perf_counter() - t0:.1f} s, device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    _, eng, prompts, max_new, rates = phase_main_path(
-        dev, params, cfg)
+    launches_main, eng, prompts, max_new, rates, streams_main = \
+        phase_main_path(dev, params, cfg)
     print(f"[main] on {smi}: prefill {rates['prefill_tok_s']:.0f} tok/s, "
           f"decode {rates['decode_tok_s']:.0f} tok/s (host clock around "
           f"synchronized admit / decode calls; every decode step a graph "
           f"replay; {eng.graphs.captures} captures, "
           f"{eng.graphs.capture_seconds:.2f} s, left out)")
+    main_captures = eng.graphs.captures
     phase_profile(eng, smi)
     timings = phase_timings(dev, eng, prompts, max_new, smi)
     launches_serve, pipe, pipe_prompts, pipe_new, streams = \
@@ -2544,6 +2843,10 @@ def main() -> int:
     phase_moe_train(dev, smi)
     phase_moe_train_fp32(dev)
     timings.update(phase_timings_train(dev, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_runtime(smi, prompts, max_new, streams_main, launches_main,
+                  main_captures, cfg.num_layers)
 
     kernels = []
     for kname, spec in KERNELS.items():

@@ -123,14 +123,29 @@ class DecodeGraphs:
     def decode_step(self, W: int) -> torch.Tensor:
         """fp32 logits [max_batch, vocab] of one decode step over rows
         tokens, positions, context_lens of `state` and `tables[:, :W]`."""
-        return self._run(("decode_step", W, 1),
-                         lambda state, live: self._step(state, W))
+        return self._run(("decode_step", W, 1))
 
     def multi_step(self, W: int, n: int) -> torch.Tensor:
         """n greedy steps off `state`, written back into it; returns the
         tokens [max_batch, n] (-1 past each slot's stop)."""
-        return self._run(("decode_multi_step", W, n),
-                         lambda state, live: self._chunk(state, W, n, live))
+        return self._run(("decode_multi_step", W, n))
+
+    def capture_all(self) -> int:
+        """Capture the decode-step graph of every table width the classic
+        engine can ask for (each pow-2 W, capped at max_pages_per_seq) up
+        front.  Returns how many were new.  A capture synchronizes the
+        device, so an engine whose graphs are all captured takes none
+        mid-run (a profiler, whose stop synchronizes from another thread,
+        may then watch it)."""
+        new, W = 0, 1
+        while True:
+            key = ("decode_step", W, 1)
+            if self.graphed and key not in self._graphs:
+                self._graphs[key] = self._capture(key)
+                new += 1
+            if W >= self.max_pages_per_seq:
+                return new
+            W = min(2 * W, self.max_pages_per_seq)
 
     # -- eager bodies -------------------------------------------------------
     def _step(self, state: torch.Tensor, W: int) -> torch.Tensor:
@@ -150,25 +165,32 @@ class DecodeGraphs:
             state[2].copy_(ctx)
         return out
 
+    def _body(self, key: tuple, state: torch.Tensor,
+              live: bool) -> torch.Tensor:
+        kind, W, n = key
+        if kind == "decode_step":
+            return self._step(state, W)
+        return self._chunk(state, W, n, live)
+
     # -- graphs -------------------------------------------------------------
-    def _run(self, key: tuple, body) -> torch.Tensor:
+    def _run(self, key: tuple) -> torch.Tensor:
         if not self.graphed:
-            return body(self.state, True)
+            return self._body(key, self.state, True)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(key, body)
+            entry = self._graphs[key] = self._capture(key)
         graph, out, launches = entry
         graph.replay()
         for kernel, n in launches.items():
             kernel.launches += n
         return out
 
-    def _capture(self, key: tuple, body
+    def _capture(self, key: tuple
                  ) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor,
                             collections.Counter]:
-        """Warm up `body` on a side stream over a dead copy of the state
-        (every position -1: its K/V rows go to the scratch page and the
-        live state is not touched), then capture it over the live state
+        """Warm up the key's body on a side stream over a dead copy of the
+        state (every position -1: its K/V rows go to the scratch page and
+        the live state is not touched), then capture it over the live state
         and note the capture as a compilation of "decode_graph.<kind>".
         Returns (graph, its output, the launches of one replay)."""
         t0 = time.perf_counter()
@@ -178,12 +200,12 @@ class DecodeGraphs:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            body(dead, False)
+            self._body(key, dead, False)
         torch.cuda.current_stream(self.device).wait_stream(side)
         take_captured()  # drop any other capture's log
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
-            out = body(self.state, True)
+            out = self._body(key, self.state, True)
         launches = collections.Counter(take_captured())
         seconds = time.perf_counter() - t0
         self.captures += 1

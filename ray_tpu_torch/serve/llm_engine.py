@@ -591,8 +591,8 @@ class LLMEngine:
                    ctx: int) -> Dict[str, Any]:
         """Gather slot's first ceil(ctx/page_size) KV pages into a
         serve_kv_export bundle.  The cache holds KV for positions
-        [0, ctx) of this slot.  bf16 pages travel as their uint16 bits
-        (numpy has no bfloat16) with "dtype": "bfloat16"."""
+        [0, ctx) of this slot.  bf16 pages travel as ml_dtypes.bfloat16
+        arrays, the form the reference's engines write and accept."""
         n_ctx = max(1, math.ceil(ctx / self.page_size))
         # Pow-2 padded gather, as the reference's; pad rows read an
         # arbitrary live page and are sliced off.
@@ -635,7 +635,8 @@ class LLMEngine:
         at admission (_admit_import).  max_new_tokens is the request's
         TOTAL budget, counting the tokens the bundle already holds.
         Bundles of the reference's engine are accepted, bf16 ones too
-        (read through their bits)."""
+        (read through their bits); so are bf16 pages given as their
+        uint16 bits, the form this engine wrote before."""
         _check_bundle_fields(bundle)
         for key, want in (("page_size", self.page_size),
                           ("num_layers", self.config.num_layers)):
@@ -1718,10 +1719,17 @@ def _check_bundle_fields(bundle: Any) -> None:
 
 
 def _host_pages(t: torch.Tensor) -> np.ndarray:
-    """Pages as a numpy array: float32 as is, bf16 as its uint16 bits."""
+    """Pages as a numpy array: float32 as is, bf16 as an ml_dtypes.bfloat16
+    array over the same bits.  numpy has no bfloat16 of its own, and the
+    reference's import_kv compares the array's dtype name with its cache's
+    ("bfloat16"), so a bundle of bits typed uint16 would be refused there.
+    ml_dtypes is a standalone numpy dtype package (not the JAX package),
+    imported at this boundary only."""
     t = t.cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
 
 

@@ -1,27 +1,53 @@
-"""Application metrics: Counter / Gauge / Histogram + Prometheus export.
+"""Copy of ray_tpu/util/metrics.py (the port imports nothing of the JAX
+package); metric names are the reference's.
 
-Copy of the process-local half of ray_tpu/util/metrics.py: the registry,
-the three metric kinds, snapshots, their merge and their Prometheus text
-and journal (JSON) forms.  Metrics are cheap host bookkeeping (a dict
-update behind a lock); nothing here touches the device path.
+Application metrics API: Counter / Gauge / Histogram + Prometheus export.
 
-Not carried over yet: publishing snapshots into the cluster KV, their
-aggregation across processes and the cluster-state gauges
-(`publish_now` and what follows it in the reference), which need the
-runtime the port does not have yet.
+Counterpart of the reference's ray.util.metrics (python/ray/util/metrics.py
+→ Cython includes/metric.pxi → the OpenCensus C++ stack N15) and the
+per-node MetricsAgent (python/ray/_private/metrics_agent.py) that
+re-exports Prometheus. The multi-hop OpenCensus pipeline collapses to:
+
+  process-local registry  →  periodic pickled snapshot into the GCS KV
+  (`__metrics__/<worker_hex>`)  →  the dashboard's /metrics endpoint (and
+  `aggregate_prometheus_text()`) merges all live snapshots into one
+  Prometheus text exposition.
+
+Metrics are cheap host bookkeeping (a dict update behind a lock); nothing
+here touches the device path.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from ray_tpu_torch.util import flight_recorder as _fr
 from ray_tpu_torch.util import journal as _journal
-from ray_tpu_torch.util import tracing as _tr
+
+_KV_PREFIX = "__metrics__/"
+_PUBLISH_INTERVAL_S = 2.0
 
 _registry_lock = threading.Lock()
 _registry: Dict[str, "Metric"] = {}
+_publisher_started = False
+# Set once this process has successfully written its KV snapshot key, so
+# clean shutdown knows whether there is anything to unpublish.
+_published = False
+
+
+def _metrics_ttl_s() -> float:
+    """Snapshot freshness window (env RAY_TPU_METRICS_TTL_S, default 60):
+    snapshots stamped older than this are skipped — and garbage-collected
+    — during aggregation, so a crashed worker's last counters do not
+    haunt /metrics forever."""
+    try:
+        return max(1.0, float(os.environ.get("RAY_TPU_METRICS_TTL_S",
+                                             "60")))
+    except ValueError:
+        return 60.0
 
 
 def _tags_key(tags: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
@@ -63,6 +89,7 @@ class Metric:
                 self._series = existing._series
                 self._lock = existing._lock
             _registry[name] = self
+        _ensure_publisher()
 
     def set_default_tags(self, tags: Dict[str, str]):
         self.default_tags = dict(tags)
@@ -145,7 +172,8 @@ class Histogram(Metric):
     def snapshot(self) -> dict:
         snap = super().snapshot()
         snap["boundaries"] = list(self.boundaries)
-        # Deep-copy mutable bucket lists so a snapshot is a stable view.
+        # Deep-copy mutable bucket lists so the publisher pickles a stable
+        # view.
         snap["series"] = {k: [list(v[0]), v[1], v[2]]
                           for k, v in snap["series"].items()}
         return snap
@@ -233,45 +261,69 @@ def snapshots_to_prometheus_text(snapshots: List[dict]) -> str:
 
 
 def local_snapshots() -> List[dict]:
-    """This process's registry, plus the trace ring's and the flight
-    recorder's own counters (the reference also folds in its wire and
-    object-plane telemetry, which need the runtime the port lacks)."""
     with _registry_lock:
         metrics = list(_registry.values())
     snaps = [m.snapshot() for m in metrics]
+    # Wire-level telemetry (core/rpc.py) lives outside the registry —
+    # rpc.py must not import this module at the frame layer — but
+    # publishes through the same pipeline.
+    try:
+        from ray_tpu_torch.core import rpc
+
+        snaps.extend(rpc.wire_metric_snapshots())
+    except Exception:
+        pass
+    # Object-plane telemetry (core/object_plane.py) publishes the same
+    # way: pulled/pushed bytes, dedup ratio, arena cache events.
+    try:
+        from ray_tpu_torch.core import object_plane
+
+        snaps.extend(object_plane.object_metric_snapshots())
+    except Exception:
+        pass
     # Silent-drop visibility: the tracing ring and flight recorder both
     # evict oldest-first without logging — surface eviction counts and
     # ring occupancy so a truncated trace is diagnosable from /metrics
     # instead of a mystery.
-    snaps.append({
-        "name": "ray_tpu_trace_dropped_spans_total",
-        "kind": "counter",
-        "description": "Spans evicted from this process's bounded "
-                       "trace ring",
-        "series": {(): float(_tr.dropped_span_count())}})
-    st = _fr.stats()
-    snaps.append({
-        "name": "ray_tpu_flight_recorder_events",
-        "kind": "gauge",
-        "description": "Events currently in the flight-recorder "
-                       "ring",
-        "series": {(): float(st["events"])}})
-    snaps.append({
-        "name": "ray_tpu_flight_recorder_capacity",
-        "kind": "gauge",
-        "description": "Flight-recorder ring capacity",
-        "series": {(): float(st["capacity"])}})
-    snaps.append({
-        "name": "ray_tpu_flight_recorder_dropped_total",
-        "kind": "counter",
-        "description": "Events evicted from the flight-recorder "
-                       "ring",
-        "series": {(): float(st["dropped"])}})
+    try:
+        from ray_tpu_torch.util import tracing as _tr
+
+        snaps.append({
+            "name": "ray_tpu_trace_dropped_spans_total",
+            "kind": "counter",
+            "description": "Spans evicted from this process's bounded "
+                           "trace ring",
+            "series": {(): float(_tr.dropped_span_count())}})
+    except Exception:
+        pass
+    try:
+        from ray_tpu_torch.util import flight_recorder as _fr
+
+        st = _fr.stats()
+        snaps.append({
+            "name": "ray_tpu_flight_recorder_events",
+            "kind": "gauge",
+            "description": "Events currently in the flight-recorder "
+                           "ring",
+            "series": {(): float(st["events"])}})
+        snaps.append({
+            "name": "ray_tpu_flight_recorder_capacity",
+            "kind": "gauge",
+            "description": "Flight-recorder ring capacity",
+            "series": {(): float(st["capacity"])}})
+        snaps.append({
+            "name": "ray_tpu_flight_recorder_dropped_total",
+            "kind": "counter",
+            "description": "Events evicted from the flight-recorder "
+                           "ring",
+            "series": {(): float(st["dropped"])}})
+    except Exception:
+        pass
     return snaps
 
 
 # ---------------------------------------------------------------------------
-# Journal form
+# Publishing (process → GCS KV) and aggregation (KV → Prometheus text)
 # ---------------------------------------------------------------------------
 
 def snapshots_json_safe(snapshots: List[dict]) -> List[dict]:
@@ -302,8 +354,185 @@ def snapshots_from_json(objs: List[dict]) -> List[dict]:
 
 
 def _journal_snapshots(snaps: List[dict]) -> None:
-    """Append snapshots to the "metrics" journal stream (no-op while
-    journaling is off); the reference's publisher calls this per tick."""
     j = _journal.stream("metrics")
     if j is not None:
         j.append({"snapshots": snapshots_json_safe(snaps)})
+
+
+def publish_now() -> bool:
+    """Publish this process's snapshots to the cluster KV immediately."""
+    global _published
+    snaps = local_snapshots()
+    if not snaps:
+        return False
+    _journal_snapshots(snaps)
+    try:
+        from ray_tpu_torch.core.runtime import get_runtime
+        rt = get_runtime()
+    except Exception:
+        return False
+    ident = rt.core.worker_hex if hasattr(rt, "core") else "driver"
+    payload = pickle.dumps({"ts": time.time(), "snapshots": snaps})
+    try:
+        rt.kv().call({"op": "kv_put", "key": _KV_PREFIX + ident,
+                      "value": payload, "overwrite": True})
+        _published = True
+        return True
+    except Exception:
+        return False
+
+
+def unpublish(kv_call, ident: str) -> None:
+    """Delete this process's snapshot key on clean shutdown so the
+    aggregator never serves a dead worker's counters during the TTL
+    window (no-op if this process never published)."""
+    global _published
+    if not _published:
+        return
+    _published = False
+    try:
+        kv_call({"op": "kv_del", "key": _KV_PREFIX + ident})
+    except Exception:
+        pass
+
+
+def _publisher_loop():
+    while True:
+        time.sleep(_PUBLISH_INTERVAL_S)
+        publish_now()
+
+
+def _ensure_publisher():
+    global _publisher_started
+    with _registry_lock:
+        if _publisher_started:
+            return
+        _publisher_started = True
+    threading.Thread(target=_publisher_loop, daemon=True,
+                     name="metrics-publisher").start()
+
+
+def aggregate_snapshots(kv_call, max_age_s: Optional[float] = None,
+                        skip_ident: Optional[str] = None) -> List[dict]:
+    """Merge all processes' published snapshots (driver-side).
+
+    `skip_ident` excludes one process's key — the aggregating process
+    reads its own registry live via local_snapshots(), so its published
+    copy would double-count.  Stale keys (older than the TTL) are
+    best-effort deleted, not just skipped."""
+    if max_age_s is None:
+        max_age_s = _metrics_ttl_s()
+    out: List[dict] = []
+    try:
+        keys = kv_call({"op": "kv_keys", "prefix": _KV_PREFIX}) or []
+    except Exception:
+        return out
+    for key in keys:
+        if skip_ident is not None and key == _KV_PREFIX + skip_ident:
+            continue
+        # Per-key isolation: one corrupt/raced snapshot must not hide the
+        # rest of the fleet's metrics.
+        try:
+            raw = kv_call({"op": "kv_get", "key": key})
+            if raw is None:
+                continue
+            payload = pickle.loads(raw)
+            if time.time() - payload.get("ts", 0) > max_age_s:
+                try:
+                    kv_call({"op": "kv_del", "key": key})
+                except Exception:
+                    pass
+                continue
+            out.extend(payload["snapshots"])
+        except Exception:
+            continue
+    return out
+
+
+def builtin_snapshots(runtime) -> List[dict]:
+    """Cluster-state gauges synthesized from the control plane (the
+    counterpart of the reference's ~90 C++ metric_defs: tasks/actors/
+    objects/nodes by state)."""
+    snaps: List[dict] = []
+
+    def gauge(name, desc, series):
+        snaps.append({"name": name, "kind": "gauge", "description": desc,
+                      "series": series})
+
+    try:
+        tasks = runtime.state_list("tasks")
+        by_state: Dict[str, int] = {}
+        for t in tasks:
+            by_state[t["state"]] = by_state.get(t["state"], 0) + 1
+        gauge("ray_tpu_tasks", "Tasks by state",
+              {(("state", s),): n for s, n in by_state.items()})
+        actors = runtime.state_list("actors")
+        by_state = {}
+        for a in actors:
+            by_state[a["state"]] = by_state.get(a["state"], 0) + 1
+        gauge("ray_tpu_actors", "Actors by state",
+              {(("state", s),): n for s, n in by_state.items()})
+        objs = runtime.state_list("objects")
+        gauge("ray_tpu_objects", "Objects in the cluster store",
+              {(): len(objs)})
+        gauge("ray_tpu_object_store_bytes", "Bytes in the object store",
+              {(): float(sum(o.get("size") or 0 for o in objs))})
+        nodes = runtime.state_list("nodes")
+        gauge("ray_tpu_nodes", "Alive nodes",
+              {(): sum(1 for n in nodes if n.get("alive", True))})
+        workers = runtime.state_list("workers")
+        by_state = {}
+        for w in workers:
+            by_state[w["state"]] = by_state.get(w["state"], 0) + 1
+        gauge("ray_tpu_workers", "Workers by state",
+              {(("state", s),): n for s, n in by_state.items()})
+        pgs = runtime.state_list("placement_groups")
+        by_state = {}
+        for p in pgs:
+            by_state[p["state"]] = by_state.get(p["state"], 0) + 1
+        gauge("ray_tpu_placement_groups", "Placement groups by state",
+              {(("state", s),): n for s, n in by_state.items()})
+        # Per-node host stats from the reporter agents
+        # (dashboard/reporter.py; reference reporter_agent metrics).
+        per_node = {
+            "cpu_percent": ("ray_tpu_node_cpu_percent",
+                            "Node CPU utilization %"),
+            "mem_used_bytes": ("ray_tpu_node_mem_used_bytes",
+                               "Node memory used"),
+            "mem_total_bytes": ("ray_tpu_node_mem_total_bytes",
+                                "Node memory total"),
+            "load_avg_1m": ("ray_tpu_node_load_avg_1m",
+                            "Node 1-minute load average"),
+            "object_store_used_bytes": (
+                "ray_tpu_node_object_store_used_bytes",
+                "Node arena bytes used"),
+            "object_store_capacity_bytes": (
+                "ray_tpu_node_object_store_capacity_bytes",
+                "Node arena capacity"),
+            "num_workers": ("ray_tpu_node_workers",
+                            "Worker processes on the node"),
+        }
+        for key, (mname, mdesc) in per_node.items():
+            series = {}
+            for n in nodes:
+                v = (n.get("stats") or {}).get(key)
+                if v is not None:
+                    series[(("node", n["node_id"]),)] = float(v)
+            if series:
+                gauge(mname, mdesc, series)
+    except Exception:
+        pass
+    return snaps
+
+
+def aggregate_prometheus_text(runtime) -> str:
+    """Everything the cluster knows, as one Prometheus exposition:
+    built-in state gauges + this process's live registry (incl. wire
+    counters) + every other process's published snapshots."""
+    snaps = builtin_snapshots(runtime)
+    snaps.extend(local_snapshots())
+    ident = (runtime.core.worker_hex if hasattr(runtime, "core")
+             else "driver")
+    snaps.extend(aggregate_snapshots(lambda msg: runtime.kv().call(msg),
+                                     skip_ident=ident))
+    return snapshots_to_prometheus_text(snaps)

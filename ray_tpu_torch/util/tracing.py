@@ -1,26 +1,30 @@
-"""Opt-in application tracing: spans on a bounded process-local ring.
+"""Copy of ray_tpu/util/tracing.py (the port imports nothing of the JAX
+package).
 
-Copy of ray_tpu/util/tracing.py without its task-runtime half.  Tracing
-is self-contained (no extra dependency, no egress):
+Opt-in application tracing: spans around task submission + user code.
 
-  - `enable_tracing()` flips a process-local flag.
+Counterpart of the reference's ray.util.tracing.tracing_helper
+(python/ray/util/tracing/tracing_helper.py: _OpenTelemetryProxy :34,
+_DictPropagator :165, decorators wrapping _remote/execute). The reference
+depends on the opentelemetry SDK and injects span context into task
+metadata; here tracing is self-contained (zero extra deps, zero egress):
+
+  - `enable_tracing()` flips a process-local flag (the reference's
+    `ray.init(_tracing_startup_hook=...)` opt-in).
   - `trace_span(name)` is a context manager recording a span on a
     thread-local stack (parent/child nesting within a process).
-  - A compact (trace_id, parent span_id) context — `make_trace_ctx()` —
-    carries a trace across a hop; `begin_task_span` / `end_task_span`
-    restore it around execution on the other side.  The serve engine's
-    phase spans (serve.queue / serve.prefill / serve.decode) parent under
-    the context a request arrives with (`record_span(..., force=True)`).
+  - Cross-process propagation (the reference's _DictPropagator): the
+    task layer captures a compact (trace_id, parent span_id) context at
+    submission — `make_trace_ctx()` — which rides the TaskSpec and is
+    restored around execution on the worker (`begin_task_span` /
+    `end_task_span`), so driver→worker→nested-task hops share one
+    trace_id with correct parent links and no extra wire round-trips.
   - Spans live in a BOUNDED ring (env RAY_TPU_TRACE_MAX_SPANS, default
-    100k): long-running processes evict oldest spans instead of leaking;
+    100k): long-running drivers evict oldest spans instead of leaking;
     `dropped_span_count()` reports evictions.
-  - `export_chrome_trace(path)` writes the spans as one chrome-trace
-    file Perfetto can open.
-
-Not carried over yet: the reference's `trace_events(runtime=...)`, which
-merges the cluster task timeline into the trace, and the task half of
-its `export_chrome_trace`; both read the task runtime, which the port
-does not have yet.
+  - `export_chrome_trace(path)` merges local spans with the cluster task
+    timeline (util/timeline.py, including its wire/scheduler lanes)
+    into one chrome-trace file Perfetto can open.
 """
 
 from __future__ import annotations
@@ -42,8 +46,8 @@ _dropped_spans = 0
 # Monotonic count of spans EVER appended to the ring (never reset by
 # eviction).  Gives every ring slot an implicit sequence number —
 # slot i holds seq (_seq_end - len(_spans) + i) — which is what lets
-# a span harvest pull incrementally with a plain integer cursor
-# instead of re-shipping the whole ring (the reference's head does).
+# the cluster span harvest (gcs._op_harvest_spans) pull incrementally
+# with a plain integer cursor instead of re-shipping the whole ring.
 _seq_end = 0
 _local = threading.local()
 
@@ -253,7 +257,7 @@ def clock_offset() -> float:
     """This process's monotonic→epoch offset (epoch = monotonic +
     offset).  Stamped into serve span/timeline records so lanes from
     two replicas (two processes, two monotonic origins) line up when a
-    trace is reassembled offline (Perfetto)."""
+    trace is reassembled offline (scripts/opsdump.py, Perfetto)."""
     return _CLOCK_OFFSET
 
 
@@ -266,8 +270,9 @@ def mono_to_epoch(t_mono: float) -> float:
 def serve_trace_enabled() -> bool:
     """Request-journey tracing gate for the serve data plane
     (RAY_TPU_SERVE_TRACE, default on).  Read per request — an env read
-    is nanoseconds next to a model step — so an overhead measurement
-    can flip it between arms without rebuilding the serving stack."""
+    is nanoseconds next to a model step — so the paired overhead bench
+    (scripts/bench_serve.py tracing phase) can flip it between arms
+    without rebuilding the serving stack."""
     return os.environ.get("RAY_TPU_SERVE_TRACE", "1").strip().lower() \
         not in ("0", "false", "no", "off")
 
@@ -355,7 +360,8 @@ def collect_spans_since(cursor: int, max_spans: int = 2048
     trace_id, name, start, end, attributes|None) — NOT expanded into
     keyed dicts: at harvest rates the dict keys dominate the JSON frame
     (7 key strings per span), so the wire carries the compact form and
-    only query replies pay for dict expansion.  At most `max_spans` rows are returned per call so a
+    only query replies (gcs._harvest_spans_sync) pay for dict
+    expansion.  At most `max_spans` rows are returned per call so a
     full 100k-span ring streams out as many small frames, never one
     giant reply; callers loop until len(rows) < max_spans."""
     max_spans = max(1, int(max_spans))
@@ -400,8 +406,9 @@ def spans_to_chrome_events(spans: List[Dict[str, Any]], pid: int = 1,
                            process_name: str = "driver spans",
                            sort_index: int = 1) -> List[Dict[str, Any]]:
     """Spans as chrome-trace X slices on one process lane.  Defaults
-    keep the historical driver lane (pid 1); a caller may pass a
-    worker's real OS pid so its spans land on that worker's row."""
+    keep the historical driver lane (pid 1); the dashboard passes each
+    harvested worker's real OS pid so its spans land on the same row as
+    that worker's execution slices (util/timeline.py convention)."""
     events = []
     for s in spans:
         events.append({
@@ -422,11 +429,26 @@ def spans_to_chrome_events(spans: List[Dict[str, Any]], pid: int = 1,
     return events
 
 
-def export_chrome_trace(filename: str) -> int:
-    """Write local spans as chrome-trace JSON; returns the number of
-    events written.  Spans only: the reference's task timeline and
-    wire/scheduler lanes need the task runtime, not ported yet."""
+def trace_events(runtime=None, max_tasks: int = 0
+                 ) -> List[Dict[str, Any]]:
+    """The unified trace: local spans + cluster task/scheduling lanes +
+    wire/scheduler flight-recorder lanes, as one chrome-trace event
+    list (the dashboard's /api/trace payload)."""
     events = spans_to_chrome_events(get_spans())
+    try:
+        from ray_tpu_torch.util.timeline import timeline_events
+
+        events.extend(timeline_events(runtime, max_tasks=max_tasks))
+    except Exception:
+        pass
+    return events
+
+
+def export_chrome_trace(filename: str, include_tasks: bool = True) -> int:
+    """Write local spans (+ the cluster task timeline and wire/scheduler
+    lanes) as chrome-trace JSON; returns the number of events written."""
+    events = (trace_events() if include_tasks
+              else spans_to_chrome_events(get_spans()))
     with open(filename, "w") as f:
         json.dump(events, f)
     return len(events)

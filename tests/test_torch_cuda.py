@@ -14,13 +14,17 @@ the pipelined and speculative engines against the classic one; the same
 holds for an MoE model (replay = eager, dispatches without a sync), and
 the exact MoE route's graph-safe form meets the gathering form at bf16.
 Training: a tiny train step (dense and MoE) on the card against the
-CPU, and each remat policy's gradients and flash launches.
+CPU, and each remat policy's gradients and flash launches.  Last, the
+port's runtime on the card: a num_gpus=1 task sees the card and a CPU
+task none, and CUDA tensors come back from the object store bit for bit.
 """
 
 import ctypes
 import dataclasses
 import importlib
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -871,6 +875,22 @@ def test_dispatches_never_synchronize(cuda):
     assert eng.graphs.captures == 5
 
 
+def test_capture_all_leaves_no_capture_to_the_run(cuda):
+    """capture_all captures the decode-step graph of every pow-2 table
+    width (bucket_bound of them) once; the classic engine's run after it
+    captures nothing and gives the streams of an engine that captured
+    lazily."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 128, size=n).tolist() for n in (12, 40, 5)]
+    want = _card_engine(cuda).generate(prompts, 30)
+    eng = _card_engine(cuda)
+    eng.graphs.state[1].fill_(-1)  # dead slots while capturing
+    assert eng.graphs.capture_all() == eng.graphs.bucket_bound() == 5
+    assert eng.graphs.capture_all() == 0
+    assert eng.generate(prompts, 30) == want
+    assert eng.graphs.captures == 5
+
+
 def test_write_page_tokens_never_synchronizes(cuda):
     """The prefill write with pad rows waits on nothing, and matches its
     CPU run outside the scratch page."""
@@ -1020,3 +1040,93 @@ def test_moe_gather_forms_agree_bf16(cuda):
     assert got.dtype == bf and got.shape == (T, h)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2 ** -6 * want.float().abs().max().item(), err
+
+
+# -- the port's runtime on the card ------------------------------------------
+
+
+@pytest.fixture
+def cuda_cluster(cuda):
+    rt = importlib.import_module(PORT)
+    rt.init(num_cpus=2, log_to_driver=False)
+    try:
+        yield rt
+    finally:
+        rt.shutdown()
+
+
+def test_gpu_task_sees_the_card_and_cpu_task_none(cuda_cluster):
+    """The GPU resource counts torch's devices; a num_gpus=1 task sees the
+    driver's card, a CPU task (CUDA_VISIBLE_DEVICES="") sees none."""
+    rt = cuda_cluster
+    assert rt.cluster_resources()["GPU"] == torch.cuda.device_count()
+
+    def probe():
+        import os
+
+        import torch
+
+        return (torch.cuda.is_available()
+                and torch.cuda.get_device_name(0),
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    gpu = rt.get(rt.remote(num_gpus=1)(probe).remote(), timeout=300)
+    cpu = rt.get(rt.remote(num_cpus=1)(probe).remote(), timeout=300)
+    assert gpu[0] == torch.cuda.get_device_name(0)
+    assert cpu == (False, "")
+
+
+def test_cuda_tensors_survive_put_get(cuda_cluster):
+    """A CUDA tensor (top level and nested, bf16 and fp32) comes back from
+    the object store on the card, bit for bit, also through a GPU task."""
+    rt = cuda_cluster
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    value = {"w": torch.randn(300, 517, generator=gen, device="cuda"
+                              ).to(torch.bfloat16),
+             "b": torch.randn(1000, generator=gen, device="cuda")}
+    top = torch.randn(64, 65, generator=gen, device="cuda")
+
+    def echo(x):
+        return x
+
+    for got, want in ((rt.get(rt.put(top), timeout=60), top),
+                      (rt.get(rt.put(value), timeout=60)["w"], value["w"]),
+                      (rt.get(rt.remote(num_gpus=1)(echo).remote(value),
+                              timeout=300)["b"], value["b"])):
+        assert got.is_cuda and got.dtype == want.dtype
+        assert torch.equal(got.view(torch.int16) if got.dtype
+                           == torch.bfloat16 else got.view(torch.int32),
+                           want.view(torch.int16) if want.dtype
+                           == torch.bfloat16 else want.view(torch.int32))
+
+
+def test_torch_trace_of_an_idle_card_says_it_failed(cuda, tmp_path):
+    """A torch_trace that asked for CUDA activity and recorded no device
+    event (the card idle, as in a process's first session here) returns a
+    "profile failed" string; one taken while another thread runs kernels
+    returns a Chrome trace that holds them."""
+    import threading
+
+    runtime = importlib.import_module(f"{PORT}.core.runtime")
+    torch.cuda.synchronize()
+    idle = runtime._torch_trace(str(tmp_path / "idle"), 0.2)
+    assert idle.startswith("profile failed: no CUDA event in "), idle
+    stop = threading.Event()
+
+    def work():
+        x = torch.randn(1024, 1024, device="cuda")
+        while not stop.is_set():
+            x = x @ x / 1024
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=work)
+    th.start()
+    try:
+        path = runtime._torch_trace(str(tmp_path / "busy"), 0.5)
+    finally:
+        stop.set()
+        th.join()
+    assert os.path.isfile(path), path
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

@@ -384,10 +384,11 @@ def test_cross_engine_handoff_continues_exactly(setup, direction):
 
 
 def test_bf16_bundles_travel_as_bits():
-    """bf16 pages have no numpy dtype without ml_dtypes: the port writes
-    their uint16 bits with dtype "bfloat16" and reads both those and the
-    reference's bfloat16 arrays; either import continues exactly as the
-    uninterrupted bf16 run."""
+    """bf16 pages travel as ml_dtypes.bfloat16 arrays (jnp.bfloat16 is that
+    dtype), the form the reference's engines write and accept, over the
+    cache's own bits; the port still reads the uint16-bits form it wrote
+    before, and either import continues exactly as the uninterrupted bf16
+    run."""
     c = ttf.TransformerConfig.tiny(max_seq_len=64, dtype=torch.bfloat16)
     params = ttf.init_params(c, 0, device="cpu")
     eng = lambda: tse.LLMEngine(c, params, device="cpu", **KW)  # noqa: E731
@@ -397,10 +398,95 @@ def test_bf16_bundles_travel_as_bits():
     rid = pre.add_request(prompt, 1, export_on_finish=True)
     _drain(pre)
     bundle = pre.kv_ready.pop(rid)
-    assert bundle["dtype"] == "bfloat16" and bundle["k"].dtype == np.uint16
-    as_ref = dict(bundle, k=bundle["k"].view(jnp.bfloat16),
-                  v=bundle["v"].view(jnp.bfloat16))
-    for b in (bundle, as_ref):
+    assert bundle["dtype"] == "bfloat16"
+    assert bundle["k"].dtype == jnp.bfloat16 == bundle["v"].dtype
+    assert str(bundle["k"].dtype) == "bfloat16"
+    bits = dict(bundle, k=bundle["k"].view(np.uint16),
+                v=bundle["v"].view(np.uint16))
+    for b in (bundle, bits):
         dec = eng()
         rid2 = dec.import_kv(b, max_new_tokens=6)
         assert _drain(dec)[rid2] == want
+
+
+def test_reference_import_kv_accepts_a_port_bf16_bundle():
+    """A bf16 bundle the port exports is accepted by the reference's
+    import_kv (a tiny bf16 JAX engine), whose cache pages then hold the
+    bundle's bits for every position before the exported context; the
+    request then runs to its budget."""
+    shape = dict(num_layers=2, num_heads=4, num_kv_heads=2, hidden_size=32,
+                 intermediate_size=64, vocab_size=64, max_seq_len=64)
+    jc = jtf.TransformerConfig.tiny(**shape, dtype=jnp.bfloat16,
+                                    use_flash=False)
+    tc = ttf.TransformerConfig.tiny(**shape, dtype=torch.bfloat16)
+    pre = tse.LLMEngine(tc, ttf.init_params(tc, 0, device="cpu"),
+                        device="cpu", **KW)
+    prompt = list(range(3, 14))
+    rid = pre.add_request(prompt, 1, export_on_finish=True)
+    _drain(pre)
+    bundle = pre.kv_ready.pop(rid)
+    ctx = bundle["context_len"]
+    jeng = JaxEngine(jc, jtf.init_params(jc, jax.random.key(0)),
+                     **{**KW, "queue_timeout_s": 0})
+    rid2 = jeng.import_kv(bundle, max_new_tokens=6)  # no ValueError
+    jeng.step()  # admission splices the pages, then one decode step
+    req = next(r for r in jeng.slot_req if r is not None)
+    n_ctx = -(-ctx // KW["page_size"])
+    pages = np.asarray(jeng.block_tables[req.slot][:n_ctx])
+    for name in ("k", "v"):
+        got = np.asarray(jeng.cache[name])[:, pages]
+        L, _, page, kd = got.shape
+        got = got.reshape(L, n_ctx * page, kd)[:, :ctx]
+        sent = bundle[name].reshape(L, n_ctx * page, kd)[:, :ctx]
+        assert got.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(got.view(np.uint16),
+                                      sent.view(np.uint16))
+    out = _drain(jeng)[rid2]
+    assert len(out) == 6 and out[0] == bundle["generated"][0]
+
+
+# ---------------------------------------------------------------------------
+# Decode graphs captured up front
+# ---------------------------------------------------------------------------
+
+class _ReplayOnCpu:
+    """A stand-in for a captured CUDA graph on the CPU: replay re-runs the
+    captured body and writes its result into the fixed output tensor."""
+
+    def __init__(self, body, out):
+        self.body, self.out = body, out
+
+    def replay(self):
+        self.out.copy_(self.body())
+
+
+def test_capture_all_leaves_no_capture_to_the_run(setup, monkeypatch):
+    """capture_all takes the decode-step graph of every pow-2 table width
+    (1, 2, 4, 8, 16 pages here) once; a second call and the classic
+    engine's run that follows capture nothing new, every step is a
+    replay, and the streams equal the JAX engine's.  The graph layer runs
+    as on a CUDA device, with replays that re-run the eager body."""
+    prompts = _prompts(11, 5, 17, 9)
+    want = _jax(setup).generate(prompts, 14)
+    eng = _port(setup)
+    g = eng.graphs
+    keys, replays = [], []
+
+    def fake_capture(key):
+        keys.append(key)
+
+        def body():
+            replays.append(key)
+            return g._body(key, g.state, True)
+
+        graph = _ReplayOnCpu(body, g._body(key, g.state.clone(), False))
+        return graph, graph.out, {}
+
+    monkeypatch.setattr(g, "graphed", True)
+    monkeypatch.setattr(g, "_capture", fake_capture)
+    assert g.capture_all() == 5
+    assert keys == [("decode_step", W, 1) for W in (1, 2, 4, 8, 16)]
+    assert g.capture_all() == 0
+    assert eng.generate(prompts, 14) == want
+    assert len(keys) == 5
+    assert replays and set(replays) <= set(keys)
