@@ -132,7 +132,27 @@ Phases, each of which raises (exit code != 0) if it fails:
      event, then one while it decodes, taken through the control plane's
      profile op, that names the paged decode kernel;
      shutdown() leaving no worker and the card's used memory at the
-     driver's own.
+     driver's own;
+ 12. the serve plane on the port's runtime (`[serve]`, last): init and
+     serve.start() (the HTTP proxy); [main]'s 12 requests at fp32 with 2
+     layers at full width from a num_gpus=1 LLMServer replica, through
+     12 concurrent handle calls and 4 HTTP streams via a chat ingress
+     (one token per chunk), every stream equal to a classic engine in
+     the driver, every page back; the same model as a prefill and a
+     decode replica at num_gpus=0.5 each, DisaggLLMClient handing all 12
+     requests' KV pages over the object plane (no fallback, streams
+     equal; bundle bytes and pull seconds); Llama-2-7B bf16 at full
+     depth with [pipelined]'s engine in a num_gpus=1 replica,
+     [pipelined]'s 24 requests as HTTP streams (16, then 8 once each of
+     those has a token): every budget met, nothing shed, every page
+     back, 24 SLO samples at the controller (TTFT, TPOT p50 / p99),
+     decode tok/s, the share of streams equal to [pipelined]'s
+     (reported), the replica's kernel launches, and its first
+     torch_trace, taken while it decodes [pipelined]'s first 16
+     requests again and again after that run, naming the paged decode
+     kernel; serve.shutdown() and shutdown() leaving no worker and the
+     card's used memory at the driver's own.  `--phase serve` runs the
+     card, the build and this phase alone.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -150,6 +170,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -752,17 +773,22 @@ def make_prompts(rng, lens, prefix_len, prefixed):
     return prompts
 
 
+def main_requests():
+    """[main]'s 12 requests: 10 prompts of 60-1000 tokens, then two that
+    share a 256-token (two-page) prefix, the second served from the
+    prefix cache; 32-64 new tokens each."""
+    rng = np.random.default_rng(0)
+    prompts = make_prompts(rng, [1000, 60, 777, 333, 900, 128, 640, 512,
+                                 257, 64], 256, [100, 37])
+    return prompts, rng.integers(32, 65, size=len(prompts)).tolist()
+
+
 def phase_main_path(dev, params, cfg):
     """LLMEngine on Llama-2-7B, 12 requests; returns launches per kernel,
     the engine, the prompts and the rates."""
     eng = LLMEngine(cfg, params, device=dev, page_size=128, num_pages=96,
                     max_batch=8)
-    rng = np.random.default_rng(0)
-    # 10 prompts of 60-1000 tokens, then two that share a 256-token
-    # (two-page) prefix: the second is served from the prefix cache.
-    prompts = make_prompts(rng, [1000, 60, 777, 333, 900, 128, 640, 512,
-                                 257, 64], 256, [100, 37])
-    max_new = rng.integers(32, 65, size=len(prompts)).tolist()
+    prompts, max_new = main_requests()
 
     admit_s, decode_s, decode_tokens = [0.0], [0.0], [0]
     inner_admit, inner_decode = eng._admit, eng._decode
@@ -2712,9 +2738,9 @@ def phase_runtime(smi, prompts, max_new, streams_main, launches_main,
             print(f"{tag} streams that differ: {diff}")
         check(equal, "the actor's streams differ from [main]'s")
         # The same requests once more, traced through the control plane's
-        # profile op once the engine is decoding.  The actor's first
-        # profile session (taken while it was idle, above) records no CUDA
-        # event; later ones record every kernel (core/runtime.py).
+        # profile op once the engine is decoding.  The idle trace above
+        # held no CUDA event because the card ran nothing in its window;
+        # [serve] takes a replica's first trace while it decodes.
         steps0 = out["steps"]
         gen_ref = actor.generate.remote(prompts, max_new)
         deadline = time.time() + 600
@@ -2778,6 +2804,481 @@ def phase_runtime(smi, prompts, max_new, streams_main, launches_main,
           "the card's used memory did not return to the driver's own")
 
 
+# ---------------------------------------------------------------------------
+# [serve]: the serve plane on the port's runtime, HTTP through the proxy
+
+from ray_tpu_torch import serve as tserve  # noqa: E402
+from ray_tpu_torch.serve.llm import (DisaggLLMClient,  # noqa: E402
+                                     LLMServer)
+
+
+class SmokeLLMServer(LLMServer.func_or_class):
+    """[serve]'s replica: the library's LLMServer, plus reads of its
+    process and engine for the checks (its kernel launch counts, its
+    pages, its handoff pull spans)."""
+
+    def __init__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        super().__init__(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ready_s = time.perf_counter() - t0
+
+    def info(self):
+        g = self.engine.graphs
+        return dict(ready_s=self.ready_s, captures=g.captures,
+                    capture_s=g.capture_seconds, pid=os.getpid(),
+                    worker=rtt.get_runtime_context().worker_id,
+                    gpu_ids=rtt.get_gpu_ids(),
+                    card=torch.cuda.get_device_name(0),
+                    teardown_cupti=os.environ.get("TEARDOWN_CUPTI"),
+                    weights_gib=self.engine._weight_bytes / 2**30,
+                    kv_gib=sum(v.numel() * v.element_size() for v in
+                               self.engine.cache.values()) / 2**30)
+
+    def launches(self, reset=False):
+        kernels = {"paged_decode_attention": tpa.PAGED_DECODE,
+                   "rope_row_write": tpa.ROPE_ROW_WRITE,
+                   "row_write": tpa.ROW_WRITE,
+                   "flash_fwd_sm90": tat.FLASH_FWD_SM90,
+                   "flash_fwd": tat.FLASH_FWD}
+        out = {n: k.launches for n, k in kernels.items()}
+        if reset:
+            for k in kernels.values():
+                k.launches = 0
+        return out
+
+    def pages(self):
+        eng = self.engine
+
+        def read():
+            idle = eng.prefix_cache.num_idle if eng.prefix_cache else 0
+            return dict(free=eng.allocator.num_free, cached_idle=idle,
+                        num_pages=eng.allocator.num_pages)
+
+        return self._on_engine(read)
+
+    def pull_spans(self):
+        rows = ttracing.collect_spans_since(0)["rows"]
+        return [s for s in map(ttracing.span_row_to_dict, rows)
+                if s["name"] == "serve.handoff_pull"]
+
+
+class SmokeChat:
+    """[serve]'s HTTP ingress: forwards a request to the LLM replica's
+    generate_stream and yields each token as its own item (one HTTP
+    chunk), as tests/test_serve_async.py's chat ingress does."""
+
+    def __init__(self, llm):
+        self.llm = llm
+
+    def __call__(self, request):
+        body = request.json() or {}
+        for tok in self.llm.options(
+                stream=True, method_name="generate_stream").remote(
+                    body["prompt"], int(body["max_new_tokens"])):
+            yield {"token": tok}
+
+
+# [serve]'s trace of the Llama-2-7B replica: its window, seconds.
+TRACE_WINDOW_S = 1.0
+SMOKE_LLM = tserve.deployment(name="llm_server", max_ongoing_requests=32)(
+    SmokeLLMServer)
+SMOKE_CHAT = tserve.deployment(name="chat", max_ongoing_requests=32)(
+    SmokeChat)
+
+
+def http_stream(addr, path, body, on_chunk=None, timeout=600):
+    """POST `body` to the proxy as a streamed request (X-Serve-Stream: 1)
+    and read the chunked reply off the socket: returns (arrival seconds
+    on the host clock, payload bytes) for each chunk, so that a test can
+    see what rode each chunk."""
+    import socket
+    from urllib.parse import urlparse
+
+    u = urlparse(addr)
+    payload = json.dumps(body).encode()
+    sock = socket.create_connection((u.hostname, u.port), timeout=timeout)
+    try:
+        sock.sendall(
+            f"POST {path} HTTP/1.1\r\nHost: {u.hostname}\r\n"
+            f"Content-Type: application/json\r\nX-Serve-Stream: 1\r\n"
+            f"Content-Length: {len(payload)}\r\nConnection: close\r\n\r\n"
+            .encode() + payload)
+        f = sock.makefile("rb")
+        status = f.readline()
+        check(b" 200 " in status, f"{path}: HTTP status {status!r}")
+        headers = b""
+        while True:
+            line = f.readline()
+            if line in (b"\r\n", b""):
+                break
+            headers += line.lower()
+        check(b"transfer-encoding: chunked" in headers,
+              f"{path}: the reply is not chunked")
+        chunks = []
+        while True:
+            size = int(f.readline().strip(), 16)
+            if size == 0:
+                break
+            data = f.read(size)
+            f.read(2)
+            chunks.append((time.perf_counter(), data))
+            if on_chunk is not None:
+                on_chunk(len(chunks))
+        return chunks
+    finally:
+        sock.close()
+
+
+def chunk_tokens(chunks, path):
+    """The tokens of a streamed reply, each from a chunk of its own."""
+    toks = []
+    for _, data in chunks:
+        lines = data.decode().splitlines()
+        check(len(lines) == 1, f"{path}: a chunk held {len(lines)} lines")
+        doc = json.loads(lines[0])
+        check(set(doc) == {"token"}, f"{path}: chunk {doc}")
+        toks.append(doc["token"])
+    return toks
+
+
+def classic_streams(cfg, prompts, max_new, **engine_kw):
+    eng = LLMEngine(cfg, None, seed=0, device="cuda", **engine_kw)
+    ids = [eng.add_request(p, n) for p, n in zip(prompts, max_new)]
+    done = {}
+    while eng.has_work():
+        done.update(eng.step())
+    return [done[rid] for rid in ids]
+
+
+def replica_pages_back(h, tag):
+    st = h.stats.remote().result(timeout_s=120)
+    pages = h.pages.remote().result(timeout_s=120)
+    print(f"{tag} stats after the run: active {st['active']}, waiting "
+          f"{st['waiting']}, shed {st['num_shed']}, completed "
+          f"{st['num_completed']}; pages free {pages['free']} + cached "
+          f"idle {pages['cached_idle']} of {pages['num_pages']} (one "
+          f"scratch page)")
+    check(st["active"] == 0 and st["waiting"] == 0,
+          f"{tag} requests still active or waiting")
+    check(pages["free"] + pages["cached_idle"] == pages["num_pages"] - 1,
+          f"{tag} pages did not come back")
+    return st
+
+
+def serve_fp32(smi, addr, prompts, max_new, want):
+    """[main]'s requests at fp32, 2 layers, from a num_gpus=1 replica:
+    12 through handles and 4 as HTTP streams, equal to the driver's
+    classic engine."""
+    tag = "[serve] fp32"
+    cfg = TransformerConfig.llama2_7b(num_layers=2, dtype=torch.float32)
+    llm = SMOKE_LLM.options(ray_actor_options={"num_gpus": 1}).bind(
+        config=cfg, seed=0, **MAIN_ENGINE)
+    t0 = time.perf_counter()
+    tserve.run(SMOKE_CHAT.bind(llm), name="fp32", route_prefix="/fp32",
+               blocking_timeout_s=600)
+    run_s = time.perf_counter() - t0
+    h = tserve.get_deployment_handle("llm_server", app_name="fp32")
+    info = h.info.remote().result(timeout_s=120)
+    print(f"{tag} Llama-2-7B width, 2 layers, {json.dumps(MAIN_ENGINE)}, "
+          f"seed 0, num_gpus=1 replica on {info['card']} (gpu ids "
+          f"{info['gpu_ids']}): serve.run to RUNNING {run_s:.2f} s, of "
+          f"which the replica's engine {info['ready_s']:.2f} s "
+          f"({info['captures']} graphs captured up front in "
+          f"{info['capture_s']:.2f} s); {smi}")
+    t0 = time.perf_counter()
+    resps = [h.generate.remote(p, n) for p, n in zip(prompts, max_new)]
+    got = [r.result(timeout_s=600) for r in resps]
+    handle_s = time.perf_counter() - t0
+    same = got == want
+    print(f"{tag} {len(prompts)} concurrent handle.generate calls in "
+          f"{handle_s:.2f} s: streams equal to the driver's classic "
+          f"engine {same}")
+    if not same:
+        print(f"{tag} differ: {[i for i, (a, b) in enumerate(zip(got, want)) if a != b]}")
+    check(same, f"{tag} handle streams differ from the classic engine's")
+    picks = [0, 3, 5, 11]
+    out = {}
+
+    def one(i):
+        out[i] = http_stream(addr, "/fp32", {"prompt": prompts[i],
+                                             "max_new_tokens": max_new[i]})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in picks]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    http_s = time.perf_counter() - t0
+    check(set(out) == set(picks), f"{tag} an HTTP stream did not end")
+    streams = {i: chunk_tokens(out[i], "/fp32") for i in picks}
+    same = all(streams[i] == want[i] for i in picks)
+    print(f"{tag} {len(picks)} HTTP streams through the proxy and a chat "
+          f"ingress in {http_s:.2f} s: {sum(len(c) for c in out.values())} "
+          f"chunks, one token each; streams equal to the classic engine's "
+          f"{same}")
+    check(same, f"{tag} HTTP streams differ from the classic engine's")
+    replica_pages_back(h, tag)
+    tserve.delete("fp32")
+
+
+def serve_disagg(smi, prompts, max_new, want):
+    """Prefill and decode replicas of the fp32 model at num_gpus=0.5 each
+    on the one card; DisaggLLMClient hands every request's KV pages over
+    the object plane."""
+    tag = "[serve] disagg"
+    cfg = TransformerConfig.llama2_7b(num_layers=2, dtype=torch.float32)
+    t0 = time.perf_counter()
+    hs = {}
+    for role in ("prefill", "decode"):
+        hs[role] = tserve.run(
+            SMOKE_LLM.options(role=role, ray_actor_options={
+                "num_gpus": 0.5}).bind(config=cfg, seed=0, **MAIN_ENGINE),
+            name=role, route_prefix=None, blocking_timeout_s=600)
+    run_s = time.perf_counter() - t0
+    infos = {r: h.info.remote().result(timeout_s=120) for r, h in hs.items()}
+    free_gpu = rtt.available_resources().get("GPU", 0.0)
+    print(f"{tag} prefill and decode replicas at num_gpus=0.5 RUNNING in "
+          f"{run_s:.2f} s: " + "; ".join(
+              f"{r} pid {i['pid']} on {i['card']} (gpu ids {i['gpu_ids']})"
+              for r, i in infos.items()) + f"; GPU left {free_gpu}")
+    check(all(i["card"] == torch.cuda.get_device_name(0)
+              for i in infos.values()), f"{tag} a replica lacks the card")
+    check(infos["prefill"]["pid"] != infos["decode"]["pid"]
+          and free_gpu == 0.0, f"{tag} the two leases do not share the card")
+    client = DisaggLLMClient(hs["prefill"], hs["decode"], page_size=128,
+                             timeout_s=600)
+    t0 = time.perf_counter()
+    got = [client.generate(p, n, trace_ctx=(f"{i:032x}", "0" * 16))
+           for i, (p, n) in enumerate(zip(prompts, max_new))]
+    gen_s = time.perf_counter() - t0
+    st = hs["decode"].stats.remote().result(timeout_s=120)
+    spans = hs["decode"].pull_spans.remote().result(timeout_s=120)
+    pulls = sorted(s["end"] - s["start"] for s in spans)
+    nbytes = [int(s["attributes"]["bytes"]) for s in spans]
+    same = got == want
+    print(f"{tag} {len(prompts)} requests through DisaggLLMClient in "
+          f"{gen_s:.2f} s: handoffs {client.handoffs}, client fallbacks "
+          f"{client.fallbacks}, decode replica kv_imports "
+          f"{st['kv_imports']}, handoff_fallbacks {st['handoff_fallbacks']}; "
+          f"streams equal to the classic engine's {same}")
+    print(f"{tag} KV bundles (fp32 pages over the object plane): "
+          f"{len(nbytes)} pulls, {sum(nbytes):,} bytes in all, "
+          f"{min(nbytes):,} to {max(nbytes):,} each; pull seconds (the "
+          f"decode replica's serve.handoff_pull spans, host clock) median "
+          f"{pulls[len(pulls) // 2]:.4f}, max {pulls[-1]:.4f}; {smi}")
+    check(client.handoffs == len(prompts) and client.fallbacks == 0
+          and st["handoff_fallbacks"] == 0
+          and st["kv_imports"] == len(prompts),
+          f"{tag} not every request was handed off")
+    check(same, f"{tag} handed-off streams differ from the classic engine's")
+    for role, h in hs.items():
+        replica_pages_back(h, f"{tag} {role}")
+    for role in hs:
+        tserve.delete(role)
+
+
+def serve_llama(smi, addr, drv, first, later, max_new, pipe_streams):
+    """Llama-2-7B at full width and depth, bf16, seed 0, in a num_gpus=1
+    replica with [pipelined]'s engine: [pipelined]'s 24 requests as HTTP
+    streams (16 at once, 8 more once each of those has streamed a
+    token), and the replica's first torch_trace while it decodes."""
+    tag = "[serve] Llama-2-7B"
+    cfg = TransformerConfig.llama2_7b()
+    # The controller gives a starting replica max(health_check_timeout_s,
+    # 30) s; this one's GPU worker start, 13 GB of weights and 12 graphs
+    # captured up front took 17.0-25.8 s on an H100 (PERF.md).
+    llm = SMOKE_LLM.options(ray_actor_options={"num_gpus": 1},
+                            health_check_timeout_s=60).bind(
+        config=cfg, seed=0, **PIPE)
+    t0 = time.perf_counter()
+    tserve.run(SMOKE_CHAT.bind(llm), name="llama", route_prefix="/llama",
+               blocking_timeout_s=600)
+    run_s = time.perf_counter() - t0
+    h = tserve.get_deployment_handle("llm_server", app_name="llama")
+    info = h.info.remote().result(timeout_s=120)
+    print(f"{tag} bf16, full depth, {json.dumps(PIPE)}, seed 0, num_gpus=1 "
+          f"replica on {info['card']}: serve.run to RUNNING {run_s:.2f} s, "
+          f"of which the replica's engine {info['ready_s']:.2f} s (weights "
+          f"{info['weights_gib']:.2f} GiB, KV pages {info['kv_gib']:.2f} "
+          f"GiB; {info['captures']} graphs captured up front in "
+          f"{info['capture_s']:.2f} s); TEARDOWN_CUPTI="
+          f"{info['teardown_cupti']!r} in the replica; {smi}")
+    h.launches.remote(reset=True).result(timeout_s=120)
+    prompts = first + later
+    got, errors = {}, []
+    streamed = [threading.Event() for _ in prompts]
+
+    def one(i):
+        try:
+            got[i] = http_stream(
+                addr, "/llama", {"prompt": prompts[i],
+                                 "max_new_tokens": max_new[i]},
+                on_chunk=lambda k: streamed[i].set())
+        except Exception as e:  # noqa: BLE001 (checked below)
+            errors.append((i, repr(e)))
+            streamed[i].set()
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads[:16]:
+        t.start()
+    deadline = time.time() + 600
+    for ev in streamed[:16]:
+        check(ev.wait(max(1.0, deadline - time.time())),
+              f"{tag} a stream never started")
+    first16_s = time.perf_counter() - t0
+    for t in threads[16:]:
+        t.start()
+    for t in threads:
+        t.join(max(1.0, deadline - time.time()))
+    check(not errors, f"{tag} HTTP streams failed: {errors[:3]}")
+    check(len(got) == len(prompts), f"{tag} a stream did not end")
+    ends = [c[-1][0] for c in got.values() if c]
+    wall = max(ends) - t0
+    streams = [chunk_tokens(got[i], "/llama") for i in range(len(prompts))]
+    tokens = sum(map(len, streams))
+    launches = h.launches.remote().result(timeout_s=120)
+    check(all(len(s) == n for s, n in zip(streams, max_new)),
+          f"{tag} a request ended short of its budget (no EOS is set)")
+    # The replica's SLO samples reach the controller on its load reports
+    # (stats() drains them), so they are read before this phase calls
+    # stats() itself.
+    ctrl = tserve.api._get_controller()
+    slo = {}
+    while time.time() < deadline:
+        slo = rtt.get(ctrl.serve_slo.remote(), timeout=60).get(
+            "llama/llm_server", {})
+        if slo.get("completed", 0) >= len(prompts):
+            break
+        time.sleep(0.5)
+    check(slo.get("completed") == len(prompts),
+          f"{tag} serve_slo holds {slo.get('completed')} samples")
+    st = replica_pages_back(h, tag)
+    check(st["num_shed"] == 0, f"{tag} {st['num_shed']} requests shed")
+    ttft, tpot = slo["ttft"], slo["tpot"]
+    share = (sum(a == b for a, b in zip(streams, pipe_streams))
+             / len(prompts) if pipe_streams else None)
+    print(f"{tag} {len(prompts)} HTTP streams (16, then 8 once each of the "
+          f"16 had a token, {first16_s:.2f} s in): {tokens} tokens, one "
+          f"per chunk, in {wall:.2f} s, {tokens / wall:.0f} decode tok/s "
+          f"over the run (host clock, prefill included); serve_slo "
+          f"{slo['completed']} samples: TTFT p50 {ttft['p50']:.3f} s, p99 "
+          f"{ttft['p99']:.3f} s; TPOT p50 {tpot['p50'] * 1e3:.2f} ms, p99 "
+          f"{tpot['p99'] * 1e3:.2f} ms; {smi}")
+    print(f"{tag} streams equal to [pipelined]'s (bf16; arrival times "
+          f"change batches; reported, not gated): "
+          + (f"{share:.3f}" if share is not None else "not compared"))
+    print(f"{tag} launches in the replica over the run, replays counted "
+          f"{json.dumps(launches)}")
+    for k in SERVE_KERNELS:
+        check(launches[k] > 0, f"{tag} {k} never ran in the replica")
+    first_trace(tag, drv, h, info, first, max_new[:16])
+    tserve.delete("llama")
+
+
+def first_trace(tag, drv, h, info, prompts, max_new):
+    """The replica's first torch_trace (no profiler session ran in that
+    process before), through the control plane's profile op, while the
+    replica decodes: `prompts` are sent through the handle again and
+    again until the trace has come back, since a process's first session
+    spends seconds setting the profiler up before its window opens
+    (PERF.md)."""
+    stop = threading.Event()
+    rounds, errors = [0], []
+
+    def load():
+        try:
+            while not stop.is_set():
+                resps = [h.generate.remote(p, n)
+                         for p, n in zip(prompts, max_new)]
+                for r in resps:
+                    r.result(timeout_s=600)
+                rounds[0] += 1
+        except Exception as e:  # noqa: BLE001 (checked below)
+            errors.append(repr(e))
+
+    loader = threading.Thread(target=load)
+    loader.start()
+    try:
+        t0 = time.perf_counter()
+        out = drv.core.client.call(
+            {"op": "profile_worker", "worker_hex": info["worker"],
+             "kind": "torch_trace", "duration_s": TRACE_WINDOW_S,
+             "timeout_s": 300.0}, timeout=330)
+        call_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        loader.join(900)
+    check(not errors and not loader.is_alive(),
+          f"{tag} the load under the trace failed: {errors[:2]}")
+    print(f"{tag} the replica's first torch_trace ({TRACE_WINDOW_S} s "
+          f"window; the call {call_s:.2f} s, profiler setup included) "
+          f"while {rounds[0]} + 1 rounds of {len(prompts)} requests "
+          f"decoded: {out!r}")
+    check(isinstance(out, str) and os.path.isfile(out),
+          f"{tag} the replica's first torch_trace gave {out!r}")
+    with open(out) as f:
+        text = f.read()
+    hits = text.count("paged_decode_kernel")
+    print(f"{tag} the first trace: {len(text):,} bytes, {hits} "
+          f"paged_decode_kernel events")
+    check(hits > 0, f"{tag} the first trace does not name the paged "
+          "decode kernel")
+
+
+def phase_serve(smi, main_prompts, main_new, first, later, pipe_new,
+                pipe_streams):
+    tag = "[serve]"
+    t0 = time.perf_counter()
+    cfg = TransformerConfig.llama2_7b(num_layers=2, dtype=torch.float32)
+    want = classic_streams(cfg, main_prompts, main_new, **MAIN_ENGINE)
+    print(f"{tag} the driver's classic engine (fp32, 2 layers, seed 0) on "
+          f"[main]'s {len(main_prompts)} requests: "
+          f"{time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used0 = device_used_bytes()
+    t0 = time.perf_counter()
+    drv = rtt.init(num_cpus=4, log_to_driver=True)
+    tserve.start()
+    addr = tserve.proxy_address()
+    print(f"{tag} init(num_cpus=4) and serve.start() in "
+          f"{time.perf_counter() - t0:.2f} s; HTTP proxy at {addr}")
+    worker_pids = set()
+    try:
+        serve_fp32(smi, addr, main_prompts, main_new, want)
+        serve_disagg(smi, main_prompts, main_new, want)
+        serve_llama(smi, addr, drv, first, later, pipe_new, pipe_streams)
+        for w in drv.control.workers.values():
+            if w.pid and w.kind != "driver":
+                worker_pids.add(w.pid)
+    finally:
+        t0 = time.perf_counter()
+        tserve.shutdown()
+        rtt.shutdown()
+        print(f"{tag} serve.shutdown() and shutdown() in "
+              f"{time.perf_counter() - t0:.2f} s")
+    deadline = time.time() + 30
+    left = worker_pids
+    while True:
+        left = {p for p in left if process_alive(p)}
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used1 = device_used_bytes()
+    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
+          f"used {used0 / 2**30:.2f} GiB before init, "
+          f"{used1 / 2**30:.2f} GiB after shutdown")
+    check(used1 <= used0 + USED_SLACK,
+          f"{tag} the card's used memory did not return to the driver's own")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2785,6 +3286,15 @@ def main() -> int:
     dev = torch.device("cuda")
     smi, name = phase_card()
     phase_build()
+    if sys.argv[1:] == ["--phase", "serve"]:
+        # [serve] alone, for work on that phase: [pipelined]'s streams are
+        # not computed, so their share is not reported.
+        prompts, max_new = main_requests()
+        first, later, pipe_new = pipelined_requests(
+            np.random.default_rng(10))
+        phase_serve(smi, prompts, max_new, first, later, pipe_new, None)
+        print("chip_smoke: [serve] alone passed")
+        return 0
     worst = phase_kernels(dev)
     for kname, err in phase_kernels(dev, pr7_draws=True).items():
         worst[kname] = max(worst[kname], err)
@@ -2847,6 +3357,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_runtime(smi, prompts, max_new, streams_main, launches_main,
                   main_captures, cfg.num_layers)
+    phase_serve(smi, prompts, max_new, pipe_prompts[:16], pipe_prompts[16:],
+                pipe_new, streams)
 
     kernels = []
     for kname, spec in KERNELS.items():

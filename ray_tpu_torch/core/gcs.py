@@ -4651,7 +4651,10 @@ class ControlServer:
 
             env_part = hashlib.sha1(
                 json.dumps(runtime_env, sort_keys=True).encode()).hexdigest()[:8]
-        key = f"gpu{int(gpu)}-{env_part}"
+        # The share as asked ("gpu0.5-"), not int(share): a fractional
+        # lease of a card needs a GPU-class worker (the reference's
+        # int() makes a 0.5-chip worker chip-less).
+        key = f"gpu{gpu:g}-{env_part}"
         if runtime_env:
             self.runtime_envs.setdefault(key, dict(runtime_env))
         return key

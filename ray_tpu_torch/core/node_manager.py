@@ -43,6 +43,14 @@ def zygote_enabled() -> bool:
     return os.environ.get("RAY_TPU_DISABLE_ZYGOTE", "") != "1"
 
 
+def is_cpu_class(env_key: str) -> bool:
+    """Env keys are `gpu<share>-<env hash>` (gcs._env_key_for): a worker
+    that asked for no GPU ("gpu0-") is of the CPU class and sees no card;
+    any share of one ("gpu0.5-", "gpu1-") makes a GPU-class worker, which
+    keeps the node's visibility."""
+    return env_key.startswith("gpu0-") or not env_key.startswith("gpu")
+
+
 def cpu_worker_env(env: dict) -> dict:
     """CPU-class worker environment, shared by exec spawns and the zygote
     template so fork spawns stay environment-identical to exec spawns:
@@ -58,6 +66,21 @@ def cpu_worker_env(env: dict) -> dict:
     env["CUDA_VISIBLE_DEVICES"] = ""
     env["PYTHONUNBUFFERED"] = "1"
     env.setdefault("ARROW_DEFAULT_MEMORY_POOL", "system")
+    return env
+
+
+def gpu_worker_env(env: dict) -> dict:
+    """GPU-class worker environment: the node's cards stay visible, and
+    Kineto (torch.profiler's tracer) keeps CUPTI set up between profiler
+    sessions (TEARDOWN_CUPTI=0, unless the caller set it).  In the trace
+    probe on an H100 (torch 2.11+cu128; PERF.md) a first session taken
+    from a thread of its own while another thread replays CUDA graphs
+    hung with the teardown on and recorded kernels with it off; the
+    runtime's torch_trace also starts and stops its sessions on the
+    thread that replays, where one is named (runtime.set_profile_runner).
+    PyTorch turns the teardown off itself when it knows of CUDA graphs
+    (torch.compile's), for the same reason."""
+    env.setdefault("TEARDOWN_CUPTI", "0")
     return env
 
 
@@ -117,12 +140,11 @@ def spawn_worker_process(*, control_addr: str, worker_hex: str, kind: str,
     if extra_env:
         env.update(extra_env)
     cmd = [sys.executable, "-m", "ray_tpu_torch.core.worker"]
-    # Env keys are `gpu<N>-<env hash>` (gcs._env_key_for): a worker that
-    # asked for no GPU is of the CPU class and sees no card; a GPU-class
-    # worker keeps the node's visibility.
-    cpu_class = env_key.startswith("gpu0") or not env_key.startswith("gpu")
+    cpu_class = is_cpu_class(env_key)
     if cpu_class:
         cpu_worker_env(env)
+    else:
+        gpu_worker_env(env)
     os.makedirs(log_dir, exist_ok=True)
     log_base = os.path.join(log_dir, f"worker-{worker_hex[:8]}")
     # Fork-from-warm-template fast path (core/zygote.py): the common CPU

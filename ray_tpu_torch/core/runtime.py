@@ -88,6 +88,23 @@ def check_runtime_env(runtime_env: dict) -> None:
         raise ValueError("runtime_env['env_vars'] must be a dict")
 
 
+# Runs a callable on the thread that issues this process's device work
+# and returns its result (set_profile_runner); None: no such thread.
+_profile_runner = None
+
+
+def set_profile_runner(run) -> None:
+    """Name the thread that issues this process's device work: `run(fn)`
+    runs fn on that thread (between its work items) and returns fn's
+    result or raises its exception; None forgets it.  torch_trace then
+    enters and leaves its profiler session on that thread, where a
+    session taken from another thread while that one replays CUDA graphs
+    can hang or record nothing (an H100, torch 2.11+cu128; PERF.md, the
+    trace probe).  serve/llm.py's LLMServer names its engine thread."""
+    global _profile_runner
+    _profile_runner = run
+
+
 def _torch_trace(out_dir: str, duration_s: float) -> str:
     """torch.profiler over a window of this process (the reference's
     jax_trace kind): returns the path of the Chrome trace it writes.
@@ -95,13 +112,16 @@ def _torch_trace(out_dir: str, duration_s: float) -> str:
     CUDA activity (CUPTI, process-wide: kernels of every thread, graph
     replays included) is recorded only when this process has already
     initialized CUDA itself; a profile must not be what opens a context
-    on the card.  On an H100 (torch 2.11+cu128) the first session of a
-    process takes seconds more and records no CUDA event, nor does a second
-    one begun while or soon after the first ran over the card's work;
-    once a session has run over an idle card, later ones record every
-    kernel (PERF.md).  So a session that asked for CUDA activity and
-    holds no device event is not handed back as a trace: it returns a
-    "profile failed: ..." string that names the file it wrote."""
+    on the card.  The session starts and stops on the thread named by
+    set_profile_runner, when one is; the window passes on this thread.
+    A process's first session spends 7-11 s setting up Kineto and CUPTI
+    before its window opens (an H100, torch 2.11+cu128), which holds up
+    the named thread that long.  GPU-class workers also run with
+    TEARDOWN_CUPTI=0 (node_manager.gpu_worker_env), so that CUPTI stays
+    set up between sessions.  A session that asked for CUDA activity and
+    holds no device event (an idle card) is not handed back as a trace:
+    it returns a "profile failed: ..." string that names the file it
+    wrote."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,16 +129,20 @@ def _torch_trace(out_dir: str, duration_s: float) -> str:
     if torch.cuda.is_initialized():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    run = _profile_runner or (lambda fn: fn())
+    prof = profile(activities=activities)
+    run(prof.start)
+    try:
         time.sleep(duration_s)
+    finally:
+        run(prof.stop)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
     # A scan of the file, not prof.events(): parsing a decoding engine's
     # events takes seconds.
     if ProfilerActivity.CUDA in activities and not _has_device_event(path):
         return (f"profile failed: no CUDA event in {path} (the card ran "
-                "nothing in the window, or this was the process's first "
-                "profiler session, which records none on the card)")
+                "nothing in the window)")
     return path
 
 

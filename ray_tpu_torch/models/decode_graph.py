@@ -130,22 +130,27 @@ class DecodeGraphs:
         tokens [max_batch, n] (-1 past each slot's stop)."""
         return self._run(("decode_multi_step", W, n))
 
-    def capture_all(self) -> int:
-        """Capture the decode-step graph of every table width the classic
-        engine can ask for (each pow-2 W, capped at max_pages_per_seq) up
-        front.  Returns how many were new.  A capture synchronizes the
-        device, so an engine whose graphs are all captured takes none
-        mid-run (a profiler, whose stop synchronizes from another thread,
-        may then watch it)."""
-        new, W = 0, 1
-        while True:
-            key = ("decode_step", W, 1)
+    def capture_all(self, n: int = 1) -> int:
+        """Capture the decode-step graph of every table width the engine
+        can ask for (each pow-2 W, capped at max_pages_per_seq) up front
+        and, for n > 1, the n-step chunk's graph of every width too (the
+        pipelined engine's `multi_step` chunks).  Returns how many were
+        new.  A capture synchronizes the device, so an engine whose
+        graphs are all captured takes none mid-run (a profiler, whose
+        stop synchronizes from another thread, may then watch it)."""
+        widths, W = [1], 1
+        while W < self.max_pages_per_seq:
+            W = min(2 * W, self.max_pages_per_seq)
+            widths.append(W)
+        keys = [("decode_step", W, 1) for W in widths]
+        if n > 1:
+            keys += [("decode_multi_step", W, n) for W in widths]
+        new = 0
+        for key in keys:
             if self.graphed and key not in self._graphs:
                 self._graphs[key] = self._capture(key)
                 new += 1
-            if W >= self.max_pages_per_seq:
-                return new
-            W = min(2 * W, self.max_pages_per_seq)
+        return new
 
     # -- eager bodies -------------------------------------------------------
     def _step(self, state: torch.Tensor, W: int) -> torch.Tensor:

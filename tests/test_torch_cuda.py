@@ -16,7 +16,10 @@ the exact MoE route's graph-safe form meets the gathering form at bf16.
 Training: a tiny train step (dense and MoE) on the card against the
 CPU, and each remat policy's gradients and flash launches.  Last, the
 port's runtime on the card: a num_gpus=1 task sees the card and a CPU
-task none, and CUDA tensors come back from the object store bit for bit.
+task none, CUDA tensors come back from the object store bit for bit, and
+a fresh GPU actor's first torch_trace holds kernels; then the serve plane:
+a tiny bf16 LLMServer replica's handle and HTTP streams agree, and a bf16
+KV bundle crosses between two replicas that share the card.
 """
 
 import ctypes
@@ -1102,9 +1105,9 @@ def test_cuda_tensors_survive_put_get(cuda_cluster):
 
 def test_torch_trace_of_an_idle_card_says_it_failed(cuda, tmp_path):
     """A torch_trace that asked for CUDA activity and recorded no device
-    event (the card idle, as in a process's first session here) returns a
-    "profile failed" string; one taken while another thread runs kernels
-    returns a Chrome trace that holds them."""
+    event (the card idle) returns a "profile failed" string; one taken
+    while another thread runs kernels returns a Chrome trace that holds
+    them."""
     import threading
 
     runtime = importlib.import_module(f"{PORT}.core.runtime")
@@ -1130,3 +1133,215 @@ def test_torch_trace_of_an_idle_card_says_it_failed(cuda, tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+def test_first_torch_trace_of_a_busy_gpu_actor_holds_kernels(cuda_cluster):
+    """The first torch_trace of a fresh num_gpus=1 actor, taken through
+    the control plane's profile op while a thread of the actor replays a
+    CUDA graph, returns a Chrome trace that holds kernel events: the
+    actor names that thread with set_profile_runner, so the session
+    starts and stops between two replays (GPU-class workers also run
+    with TEARDOWN_CUPTI=0); no trace before it."""
+    rt = cuda_cluster
+
+    class Busy:
+        def __init__(self):
+            import collections
+            import threading
+
+            import torch
+
+            runtime = importlib.import_module(f"{PORT}.core.runtime")
+            a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+            outs = [torch.empty_like(a) for _ in range(8)]
+
+            def body():
+                x = a
+                for o in outs:
+                    torch.matmul(x, a, out=o)
+                    x = o
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                body()
+            torch.cuda.synchronize()
+            self.replays = 0
+            self.calls = collections.deque()
+            self.stop = threading.Event()
+            threading.Thread(target=self._loop, daemon=True).start()
+            runtime.set_profile_runner(self._on_loop)
+
+        def _on_loop(self, fn):
+            import concurrent.futures
+
+            fut = concurrent.futures.Future()
+            self.calls.append((fn, fut))
+            return fut.result(timeout=300)
+
+        def _loop(self):
+            import torch
+
+            while not self.stop.is_set():
+                while self.calls:
+                    fn, fut = self.calls.popleft()
+                    try:
+                        fut.set_result(fn())
+                    except BaseException as e:  # noqa: BLE001
+                        fut.set_exception(e)
+                self.graph.replay()
+                torch.cuda.synchronize()
+                self.replays += 1
+
+        def info(self):
+            import os
+
+            return (rt.get_runtime_context().worker_id, self.replays,
+                    os.environ.get("TEARDOWN_CUPTI"))
+
+        def halt(self):
+            self.stop.set()
+            return self.replays
+
+    actor = rt.remote(num_gpus=1, max_concurrency=2)(Busy).remote()
+    worker, replays, teardown = rt.get(actor.info.remote(), timeout=300)
+    assert teardown == "0"
+    drv = importlib.import_module(f"{PORT}.core.runtime").get_runtime()
+    path = drv.core.client.call(
+        {"op": "profile_worker", "worker_hex": worker, "kind": "torch_trace",
+         "duration_s": 1.0, "timeout_s": 300.0}, timeout=330)
+    assert rt.get(actor.halt.remote(), timeout=60) > replays
+    assert isinstance(path, str) and os.path.isfile(path), path
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert sum(e.get("cat") == "kernel" for e in events) > 0
+
+
+_SERVE_TINY = dict(num_layers=2, num_heads=4, num_kv_heads=2,
+                   hidden_size=512, intermediate_size=256, vocab_size=128,
+                   max_seq_len=128, dtype=torch.bfloat16)
+
+
+@pytest.fixture
+def cuda_serve(cuda_cluster):
+    serve = importlib.import_module(f"{PORT}.serve")
+    try:
+        serve.start()
+        yield cuda_cluster, serve
+    finally:
+        serve.shutdown()
+
+
+def test_llm_server_replica_generate_and_http_stream_agree(cuda_serve):
+    """A tiny bf16 LLMServer in a num_gpus=1 replica: handle.generate and
+    an HTTP stream through a chat ingress give the same tokens."""
+    import http.client
+    from urllib.parse import urlparse
+
+    rt, serve = cuda_serve
+    tllm = importlib.import_module(f"{PORT}.serve.llm")
+
+    class Chat:
+        def __init__(self, llm):
+            self.llm = llm
+
+        def __call__(self, request):
+            body = request.json()
+            for tok in self.llm.options(
+                    stream=True, method_name="generate_stream").remote(
+                        body["prompt"], body["n"]):
+                yield {"token": tok}
+
+    llm = tllm.LLMServer.options(ray_actor_options={"num_gpus": 1}).bind(
+        config_kwargs=_SERVE_TINY, page_size=8, num_pages=64, max_batch=4)
+    serve.run(serve.deployment(name="chat")(Chat).bind(llm), name="tiny",
+              route_prefix="/tiny", blocking_timeout_s=300)
+    h = serve.get_deployment_handle("llm_server", app_name="tiny")
+    prompt = list(range(3, 40))
+    want = h.generate.remote(prompt, 12).result(timeout_s=300)
+    u = urlparse(serve.proxy_address())
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=300)
+    conn.request("POST", "/tiny", body=json.dumps(
+        {"prompt": prompt, "n": 12}).encode(),
+        headers={"X-Serve-Stream": "1", "Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    got = [json.loads(x)["token"] for x in resp.read().splitlines() if x]
+    conn.close()
+    assert len(want) == 12 and got == want
+    st = h.stats.remote().result(timeout_s=60)
+    assert st["active"] == 0 and st["waiting"] == 0
+
+
+def test_llm_replica_first_trace_names_the_decode_kernel(cuda_serve):
+    """The first torch_trace of a tiny bf16 LLMServer replica, taken
+    while it decodes (requests sent again and again until the trace is
+    back), names the paged decode kernel: the server's engine thread
+    starts and stops the session."""
+    import threading
+
+    rt, serve = cuda_serve
+    tllm = importlib.import_module(f"{PORT}.serve.llm")
+
+    class Traced(tllm.LLMServer.func_or_class):
+        def worker(self):
+            return rt.get_runtime_context().worker_id
+
+    h = serve.run(serve.deployment(name="llm_server")(Traced).options(
+        ray_actor_options={"num_gpus": 1}).bind(
+            config_kwargs=_SERVE_TINY, page_size=8, num_pages=64,
+            max_batch=4), name="traced", route_prefix=None,
+        blocking_timeout_s=300)
+    worker = h.worker.remote().result(timeout_s=60)
+    stop, done = threading.Event(), []
+
+    def load():
+        while not stop.is_set():
+            rs = [h.generate.remote(list(range(3, 20 + i)), 64)
+                  for i in range(4)]
+            done.extend(r.result(timeout_s=300) for r in rs)
+
+    th = threading.Thread(target=load)
+    th.start()
+    drv = importlib.import_module(f"{PORT}.core.runtime").get_runtime()
+    try:
+        path = drv.core.client.call(
+            {"op": "profile_worker", "worker_hex": worker,
+             "kind": "torch_trace", "duration_s": 1.0, "timeout_s": 300.0},
+            timeout=330)
+    finally:
+        stop.set()
+        th.join(600)
+    assert not th.is_alive() and done
+    assert isinstance(path, str) and os.path.isfile(path), path
+    with open(path) as f:
+        assert "paged_decode_kernel" in f.read()
+
+
+def test_bf16_handoff_across_half_card_replicas(cuda_serve):
+    """Two num_gpus=0.5 replicas of a tiny bf16 model share the card; a
+    bf16 KV bundle goes prefill_only -> object plane -> decode_from and
+    the decode leg continues it without a fallback."""
+    rt, serve = cuda_serve
+    tllm = importlib.import_module(f"{PORT}.serve.llm")
+    kw = dict(config_kwargs=_SERVE_TINY, page_size=8, num_pages=64,
+              max_batch=4)
+    pre = serve.run(tllm.LLMServer.options(
+        role="prefill", ray_actor_options={"num_gpus": 0.5}).bind(**kw),
+        name="pre", route_prefix=None, blocking_timeout_s=300)
+    dec = serve.run(tllm.LLMServer.options(
+        role="decode", ray_actor_options={"num_gpus": 0.5}).bind(**kw),
+        name="dec", route_prefix=None, blocking_timeout_s=300)
+    assert rt.available_resources().get("GPU", 0.0) == 0.0
+    prompt = list(range(5, 30))
+    kv = pre.prefill_only.remote(prompt, 10).result(timeout_s=300)
+    assert kv["op"] == "serve_kv_import" and kv["size"] > 0
+    got = dec.decode_from.remote(prompt, kv, 10).result(timeout_s=300)
+    want = pre.generate.remote(prompt, 10).result(timeout_s=300)
+    assert len(got) == 10 and got == want
+    st = dec.stats.remote().result(timeout_s=60)
+    assert st["kv_imports"] == 1 and st["handoff_fallbacks"] == 0

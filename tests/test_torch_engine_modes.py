@@ -490,3 +490,39 @@ def test_capture_all_leaves_no_capture_to_the_run(setup, monkeypatch):
     assert eng.generate(prompts, 14) == want
     assert len(keys) == 5
     assert replays and set(replays) <= set(keys)
+
+
+def test_capture_all_takes_the_chunk_graphs_of_a_pipelined_engine(
+        setup, monkeypatch):
+    """capture_all(n) also takes the n-step chunk's graph of every pow-2
+    table width, so a pipelined engine (multi_step n) captures nothing
+    during its run; its streams equal the JAX engine's.  The graph layer
+    runs as on a CUDA device, with replays that re-run the eager body."""
+    prompts = _prompts(12, 5, 17, 9, 30)
+    want = _jax(setup).generate(prompts, 14)
+    eng = _port(setup, multi_step=4, pipeline_depth=2)
+    g = eng.graphs
+    keys, replays = [], []
+
+    def fake_capture(key):
+        keys.append(key)
+
+        def body():
+            replays.append(key)
+            return g._body(key, g.state, True)
+
+        graph = _ReplayOnCpu(body, g._body(key, g.state.clone(), False))
+        return graph, graph.out, {}
+
+    monkeypatch.setattr(g, "graphed", True)
+    monkeypatch.setattr(g, "_capture", fake_capture)
+    widths = (1, 2, 4, 8, 16)
+    assert g.capture_all(4) == 10
+    assert keys == [("decode_step", W, 1) for W in widths] + [
+        ("decode_multi_step", W, 4) for W in widths]
+    assert g.capture_all(4) == 0
+    assert eng.generate(prompts, 14) == want
+    assert len(keys) == 10
+    assert ("decode_multi_step", 16, 4) in replays or \
+        ("decode_multi_step", 8, 4) in replays
+    assert set(replays) <= set(keys)

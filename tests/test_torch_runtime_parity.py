@@ -274,7 +274,7 @@ def test_torch_trace_self_profile(clusters, tmp_path):
 
 def test_torch_trace_without_a_cuda_event_is_flagged(tmp_path, monkeypatch):
     """A session that asked for CUDA activity and recorded no device event
-    (here: a CPU build, on the card: a process's first session) is not
+    (here: a CPU build; on the card: an idle card) is not
     handed back as a trace: it returns a "profile failed" string naming
     the file, which holds the window's CPU ops."""
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
@@ -290,6 +290,45 @@ def test_torch_trace_without_a_cuda_event_is_flagged(tmp_path, monkeypatch):
                                     "name": "paged_decode_kernel"}]}, f)
     assert runtime._has_device_event(kernel)
     assert not runtime._has_device_event(path)
+
+
+def test_torch_trace_starts_and_stops_on_the_named_thread(tmp_path,
+                                                          monkeypatch):
+    """With a profile runner named (LLMServer names its engine thread),
+    torch_trace enters and leaves its session on that thread and waits
+    out the window on its own; without one it does all on its own."""
+    import concurrent.futures
+    import threading
+
+    runtime = importlib.import_module(f"{PORT}.core.runtime")
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    owner = ex.submit(threading.get_ident).result()
+    seen = []
+    prof_mod = importlib.import_module("torch.profiler")
+    start, stop = prof_mod.profile.start, prof_mod.profile.stop
+
+    def spy(fn, name):
+        def wrapped(self):
+            seen.append((name, threading.get_ident()))
+            return fn(self)
+        return wrapped
+
+    monkeypatch.setattr(prof_mod.profile, "start", spy(start, "start"))
+    monkeypatch.setattr(prof_mod.profile, "stop", spy(stop, "stop"))
+    try:
+        runtime.set_profile_runner(lambda fn: ex.submit(fn).result())
+        out = runtime._torch_trace(str(tmp_path / "named"), 0.05)
+        assert os.path.isfile(out)
+        assert seen == [("start", owner), ("stop", owner)]
+        runtime.set_profile_runner(None)
+        seen.clear()
+        out = runtime._torch_trace(str(tmp_path / "own"), 0.05)
+        assert os.path.isfile(out)
+        me = threading.get_ident()
+        assert seen == [("start", me), ("stop", me)]
+    finally:
+        runtime.set_profile_runner(None)
+        ex.shutdown()
 
 
 # -- metrics publishing, function level (tests/test_observability.py) ---------
@@ -375,3 +414,30 @@ def test_metrics_snapshots_journal_roundtrip(tmp_path, monkeypatch):
     mine = next(s for s in snaps if s["name"] == "ops_journal_port_total")
     assert mine["series"][(("k", "a"),)] == 2.0
     assert sys.modules[f"{PORT}.util.metrics"] is metrics
+
+
+def test_a_share_of_a_card_makes_a_gpu_class_worker():
+    """A lease of 0.5 GPU gets a GPU-class worker (it keeps the node's
+    cards visible), as 1 GPU does; 0 GPU a CPU-class one.  The
+    reference's env key truncates the share with int(), which would make
+    a 0.5 worker card-less."""
+    import types
+
+    gcs = importlib.import_module(f"{PORT}.core.gcs")
+    nm = importlib.import_module(f"{PORT}.core.node_manager")
+    stub = types.SimpleNamespace(runtime_envs={})
+
+    def key(res):
+        return gcs.ControlServer._env_key_for(stub, res, None)
+
+    assert [key(r) for r in ({}, {"GPU": 0.5}, {"GPU": 1.0},
+                             {"GPU": 2})] == ["gpu0-", "gpu0.5-", "gpu1-",
+                                              "gpu2-"]
+    assert nm.is_cpu_class(key({})) and nm.is_cpu_class(key({"CPU": 1}))
+    assert not nm.is_cpu_class(key({"GPU": 0.5}))
+    assert not nm.is_cpu_class(key({"GPU": 1}))
+    env = nm.gpu_worker_env({})
+    assert env["TEARDOWN_CUPTI"] == "0"
+    assert "CUDA_VISIBLE_DEVICES" not in env
+    assert nm.gpu_worker_env({"TEARDOWN_CUPTI": "1"})["TEARDOWN_CUPTI"] \
+        == "1"
