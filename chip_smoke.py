@@ -152,7 +152,33 @@ Phases, each of which raises (exit code != 0) if it fails:
      requests again and again after that run, naming the paged decode
      kernel; serve.shutdown() and shutdown() leaving no worker and the
      card's used memory at the driver's own.  `--phase serve` runs the
-     card, the build and this phase alone.
+     card, the build and this phase alone;
+ 13. the Train library on the port's runtime (`[train-runtime]`, last):
+     init(num_cpus=4) with the GPU detected and `df` of a temporary
+     storage directory (at least 15 GB free, removed at the end);
+     [train]'s model, batch and recipe through TorchTrainer.fit() in a
+     num_gpus=1 worker (ScalingConfig(num_workers=1, use_gpu=True),
+     FailureConfig(max_failures=1), CheckpointConfig(num_to_keep=1), the
+     token batch through get_dataset_shard): the warm-up and 6 timed
+     steps, each reported; the whole state after timed step 3 saved with
+     save_pytree_async and reported as a Checkpoint; the worker killed
+     (os._exit) at the top of the next step; a new worker restoring it
+     onto the card with load_pytree and running the last 3 steps.  Gates:
+     result step 7 resumed from state step 4, every reported loss equal
+     to [train]'s bit for bit, the restored state equal to the saved one
+     (digests of every tensor's bits), the second worker's flash launches
+     those of 3 full-remat steps (96 / 48 / 48, no older variant),
+     device_stats' last step plane "train" with its MFU = tokens/s x
+     FLOPs per token / peak, result.json and progress.csv in the run
+     directory; then a two-rank gloo DDP of the reference's toy model on
+     the card from two num_gpus=0.5 workers, both ranks' weights bitwise
+     equal and equal to rtol 1e-6 to one process stepping on the shards'
+     mean gradient; shutdown() leaving no worker and the card's used
+     memory at the driver's own.  It prints worker start and ready times,
+     ms per step and tokens/s beside [train]'s, train_mfu, peak memory,
+     the save's seconds to return, to durable and to persisted, and the
+     load time.  `--phase train` runs the card, the build, [train] (the
+     reference) and this phase alone.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -170,6 +196,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2110,7 +2137,9 @@ def train_optimizer():
 
 def phase_train(dev, smi):
     """The 0.9B headline config trained at b = 8, s = 2048; returns the
-    training kernels' launches over the timed steps."""
+    training kernels' launches over the timed steps, and the losses of
+    the warm-up and timed steps (state steps 1-7), ms per step, tokens/s,
+    train_mfu and peak memory, for [train-runtime]."""
     name, cfg, B, S = tbench._config_ladder(ttf)[0]
     check(name == "0.9B" and (B, S) == (TRAIN["batch"], TRAIN["seq"]),
           "the bench's headline config changed")
@@ -2166,7 +2195,8 @@ def phase_train(dev, smi):
              "s=2048)", smi)
     del state, ts
     torch.cuda.empty_cache()
-    return launches, dict(tok_s=tok_s, mfu=mfu, peak=peak)
+    return launches, dict(tok_s=tok_s, mfu=mfu, peak=peak,
+                          ms=dt / steps * 1e3, losses=[first] + losses)
 
 
 @contextlib.contextmanager
@@ -3279,6 +3309,375 @@ def phase_serve(smi, main_prompts, main_new, first, later, pipe_new,
           f"{tag} the card's used memory did not return to the driver's own")
 
 
+# ---------------------------------------------------------------------------
+# [train-runtime]: the Train library on the port's runtime
+
+from ray_tpu_torch import train as ttrain  # noqa: E402
+from ray_tpu_torch.train import checkpoint as tckpt  # noqa: E402
+from ray_tpu_torch.train.torch_backend import TorchConfig  # noqa: E402
+
+# [train]'s run in a num_gpus=1 train worker: state step 1 is the warm-up,
+# 2-7 the timed steps; the state after step `save_at` (timed step 3) is
+# checkpointed, and the first worker dies at the top of step `kill_at`.
+TRAIN_RUNTIME = dict(save_at=4, kill_at=5)
+# Free space the phase's storage directory needs: the 0.9B state (3.52 GB
+# of fp32 params, 2 x 1.76 GB of bf16 moments), its persisted copy beside
+# the worker's local one, and room to spare.
+TRAIN_RUNTIME_FREE = 15e9
+# The two-rank DDP toy: steps and learning rate.
+DDP_TOY = dict(steps=60, lr=0.1)
+_INT_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def state_digest(tree, path=""):
+    """Every leaf of a train state: a tensor as (path, dtype, shape, and
+    two int64 sums of its bits, one weighted by position, each wrapping,
+    so the same on any device and in any order), any other leaf as
+    itself.  Equal digests: equal bits, short of a collision."""
+    if isinstance(tree, torch.Tensor):
+        bits = tree.detach().contiguous().view(
+            _INT_VIEW[tree.element_size()]).reshape(-1).to(torch.int64)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device,
+                         dtype=torch.int64) * 2654435761
+        return [(path, str(tree.dtype), list(tree.shape),
+                 int((bits * w).sum()), int(bits.sum()))]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_digest(
+            tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [(path, type(tree).__name__)] + [
+            x for i, v in enumerate(tree)
+            for x in state_digest(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def train_runtime_loop(config):
+    """[train]'s model, batch and recipe in a train worker: init(0) or
+    the checkpoint's state, then steps up to 1 + TRAIN["steps"], each
+    reported; the state after step save_at saved with save_pytree_async
+    and reported as a Checkpoint; a first attempt dies at the top of step
+    kill_at (os._exit, a hard kill)."""
+    import psutil as _psutil
+
+    from ray_tpu_torch.train.torch_backend import get_device
+
+    t_loop = time.time()
+    dev = get_device()
+    # No TF32 in fp32 matmuls, as [card] sets it for [train] (the torch
+    # default, checked; this function names no torch.backends module,
+    # which pickling it by value cannot carry).
+    check(torch.get_float32_matmul_precision() == "highest",
+          "the train worker's fp32 matmuls may use TF32")
+    _, cfg, B, S = tbench._config_ladder(ttf)[0]
+    ts = ShardedTrainStep(cfg, device=dev, optimizer=train_optimizer())
+    batch = {"tokens": torch.from_numpy(np.array(
+        ttrain.get_dataset_shard("train"))).to(dev)}
+    ckpt = ttrain.get_checkpoint()
+    info = dict(pid=os.getpid(), created=_psutil.Process().create_time(),
+                loop_start=t_loop, device=str(dev),
+                attempt=1 if ckpt is None else 2)
+    if ckpt is None:
+        state = ts.init(0)
+        resumed = None
+    else:
+        step = ckpt.get_metadata()["metrics"]["step"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tckpt.load_pytree(os.path.join(
+            ckpt.as_directory(), f"step_{step}"), map_location=dev)
+        torch.cuda.synchronize()
+        info["load_s"] = time.perf_counter() - t0
+        info["digest"] = state_digest(state)
+        resumed = state["step"]
+    torch.cuda.synchronize()
+    info["ready"] = time.time()
+    # This process's kernels, through their module: KERNELS would travel
+    # with this function as a copy.
+    flash = {"flash_fwd_sm90": tat.FLASH_FWD_SM90,
+             "flash_bwd_dq_sm90": tat.FLASH_BWD_DQ_SM90,
+             "flash_bwd_dkv_sm90": tat.FLASH_BWD_DKV_SM90,
+             "flash_fwd": tat.FLASH_FWD, "flash_bwd_dq": tat.FLASH_BWD_DQ,
+             "flash_bwd_dkv": tat.FLASH_BWD_DKV}
+    for k in flash.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fpt = ttf.flops_per_token(cfg, S)
+    device_step = None
+    while state["step"] < 1 + TRAIN["steps"]:
+        n = state["step"] + 1
+        if ckpt is None and n == config["kill_at"]:
+            # report() returned: the driver holds step save_at's row.
+            os._exit(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        metrics = dict(
+            step=n, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+            tokens_per_sec=B * S / dt, flops_per_token=fpt, ms=dt * 1e3,
+            resumed_from=resumed, info=dict(info),
+            launches={k: v.launches for k, v in flash.items()},
+            peak=torch.cuda.max_memory_allocated(),
+            device_step=device_step)
+        if ckpt is None and n == config["save_at"]:
+            digest = state_digest(state)
+            local = tempfile.mkdtemp(prefix="local_", dir=config["local_root"])
+            t0 = time.time()
+            handle = tckpt.save_pytree_async(state, local, step=n)
+            returned = time.time() - t0
+            handle.wait()
+            metrics["save"] = dict(t0=t0, return_s=returned,
+                                   durable_s=handle.durable_at - t0,
+                                   digest=digest)
+            ttrain.report(metrics,
+                          checkpoint=tckpt.Checkpoint.from_directory(local))
+            shutil.rmtree(local)
+        else:
+            ttrain.report(metrics)
+        device_step = dict(tds.last_step() or {},
+                           peak_flops=tds.peak_specs()[1])
+
+
+def ddp_toy_loop(config):
+    """The reference's two-worker DDP toy with the model on the worker's
+    device: rank r fits its own shard (seed 100 + r); both ranks' final
+    weights are gathered and reported."""
+    import torch.distributed as dist
+    import torch.nn as nn
+
+    from ray_tpu_torch.train.torch_backend import prepare_model
+
+    ctx = ttrain.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    torch.manual_seed(0)
+    model = prepare_model(nn.Linear(4, 1))
+    dev = next(model.parameters()).device
+    opt = torch.optim.SGD(model.parameters(), lr=config["lr"])
+    X, y = ddp_toy_shard(rank, dev)
+    for _ in range(config["steps"]):
+        opt.zero_grad()
+        ((model(X) - y) ** 2).mean().backward()
+        opt.step()
+    mod = model.module
+    w = torch.cat([mod.weight.detach().reshape(-1),
+                   mod.bias.detach()]).cpu().tolist()
+    gathered = [None] * world
+    dist.all_gather_object(gathered, w)
+    ttrain.report({"weights": gathered, "device": str(dev),
+                   "wrapped": type(model).__name__,
+                   "backend": dist.get_backend()})
+
+
+def ddp_toy_shard(rank, dev):
+    g = torch.Generator().manual_seed(100 + rank)
+    X = torch.randn(64, 4, generator=g)
+    y = X @ torch.tensor([[1.0, -2.0, 3.0, 0.5]]).T
+    return X.to(dev), y.to(dev)
+
+
+def ddp_toy_reference(dev, world):
+    """One process stepping on the mean of the shards' gradients, as DDP
+    averages them."""
+    import torch.nn as nn
+
+    torch.manual_seed(0)
+    model = nn.Linear(4, 1).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=DDP_TOY["lr"])
+    shards = [ddp_toy_shard(r, dev) for r in range(world)]
+    for _ in range(DDP_TOY["steps"]):
+        grads = []
+        for X, y in shards:
+            model.zero_grad()
+            ((model(X) - y) ** 2).mean().backward()
+            grads.append([p.grad.clone() for p in model.parameters()])
+        for p, *gs in zip(model.parameters(), *grads):
+            p.grad = sum(gs) / world
+        opt.step()
+    return torch.cat([model.weight.detach().reshape(-1),
+                      model.bias.detach()]).cpu().tolist()
+
+
+def train_runtime_ddp(tag, store):
+    t0 = time.perf_counter()
+    res = ttrain.TorchTrainer(
+        ddp_toy_loop, train_loop_config=DDP_TOY,
+        backend_config=TorchConfig(backend="gloo"),
+        scaling_config=ttrain.ScalingConfig(
+            num_workers=2, use_gpu=True, gpus_per_worker=0.5),
+        run_config=ttrain.RunConfig(storage_path=store, name="ddp")).fit()
+    w0, w1 = res.metrics["weights"]
+    want = ddp_toy_reference(torch.device("cuda"), 2)
+    err = max(abs(a - b) / abs(b) for a, b in zip(w0, want))
+    print(f"{tag} two-rank DDP on the one card ({res.metrics['backend']}, "
+          f"{res.metrics['wrapped']} on {res.metrics['device']}, two "
+          f"num_gpus=0.5 workers, {DDP_TOY['steps']} SGD steps): "
+          f"{time.perf_counter() - t0:.2f} s; rank weights bitwise equal "
+          f"{w0 == w1}; max relative difference to one process stepping on "
+          f"the shards' mean gradient {err:.3e} (rtol 1e-6)")
+    check(res.metrics["device"] == "cuda:0"
+          and res.metrics["wrapped"] == "DistributedDataParallel",
+          f"{tag} the DDP model is not on the card")
+    check(w0 == w1, f"{tag} the DDP ranks' weights differ")
+    check(err <= 1e-6, f"{tag} DDP differs from the mean-gradient step")
+    print(f"{tag} TorchConfig(backend='nccl') waits for a machine with more "
+          "than one card: NCCL refuses two ranks on one device (ROADMAP "
+          "Queue A item 6)")
+
+
+def phase_train_runtime(smi, ref):
+    """[train]'s run through TorchTrainer.fit() in a num_gpus=1 worker,
+    checkpointed, killed and resumed; `ref` is [train]'s result (its
+    per-step losses, ms per step, tokens/s)."""
+    tag = "[train-runtime]"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    used0 = device_used_bytes()
+    store = tempfile.mkdtemp(prefix="train_runtime_")
+    worker_pids = set()
+    try:
+        df = subprocess.run(["df", "-B1", store], capture_output=True,
+                            text=True, check=True, timeout=60).stdout
+        free = shutil.disk_usage(store).free
+        print(f"{tag} storage {store}; df -B1: "
+              + " | ".join(df.strip().splitlines()))
+        check(free >= TRAIN_RUNTIME_FREE,
+              f"{tag} {free / 1e9:.1f} GB free under {store}, the phase "
+              f"needs {TRAIN_RUNTIME_FREE / 1e9:.0f} GB (two copies of the "
+              "0.9B state); it never runs a smaller state")
+        t0 = time.perf_counter()
+        drv = rtt.init(num_cpus=4, log_to_driver=True)
+        res = rtt.cluster_resources()
+        print(f"{tag} init(num_cpus=4) in {time.perf_counter() - t0:.2f} s; "
+              f"cluster_resources {json.dumps(res)}")
+        check(res.get("GPU") == torch.cuda.device_count(),
+              f"{tag} GPU resource {res.get('GPU')}")
+        try:
+            _, cfg, B, S = tbench._config_ladder(ttf)[0]
+            tokens = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (B, S + 1))
+            local_root = os.path.join(store, "local")
+            os.makedirs(local_root)
+            t_fit = time.time()
+            result = ttrain.TorchTrainer(
+                train_runtime_loop,
+                train_loop_config=dict(TRAIN_RUNTIME, local_root=local_root),
+                scaling_config=ttrain.ScalingConfig(num_workers=1,
+                                                    use_gpu=True),
+                run_config=ttrain.RunConfig(
+                    storage_path=store, name="train_runtime",
+                    failure_config=ttrain.FailureConfig(max_failures=1),
+                    checkpoint_config=ttrain.CheckpointConfig(num_to_keep=1)),
+                datasets={"train": tokens}).fit()
+            fit_s = time.time() - t_fit
+            check_train_runtime(tag, smi, ref, cfg, B * S, result, t_fit,
+                                fit_s)
+            train_runtime_ddp(tag, store)
+            for w in drv.control.workers.values():
+                if w.pid and w.kind != "driver":
+                    worker_pids.add(w.pid)
+        finally:
+            t0 = time.perf_counter()
+            rtt.shutdown()
+            print(f"{tag} shutdown in {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    deadline = time.time() + 30
+    left = worker_pids
+    while True:
+        left = {p for p in left if process_alive(p)}
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used1 = device_used_bytes()
+    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
+          f"used {used0 / 2**30:.2f} GiB before init, "
+          f"{used1 / 2**30:.2f} GiB after shutdown; storage removed; the "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    check(used1 <= used0 + USED_SLACK,
+          f"{tag} the card's used memory did not return to the driver's own")
+    check(not os.path.exists(store), f"{tag} {store} was left behind")
+
+
+def check_train_runtime(tag, smi, ref, cfg, tokens, result, t_fit, fit_s):
+    hist = result.metrics_history
+    steps = [h["step"] for h in hist]
+    print(f"{tag} TorchTrainer.fit() in {fit_s:.1f} s; reported steps "
+          f"{steps}; result step {result.metrics['step']}, resumed from "
+          f"state step {result.metrics['resumed_from']}")
+    check(steps == list(range(1, 2 + TRAIN["steps"])),
+          f"{tag} reported steps {steps}")
+    check(result.metrics["step"] == 1 + TRAIN["steps"]
+          and result.metrics["resumed_from"] == TRAIN_RUNTIME["save_at"],
+          f"{tag} the run did not end at step 7 resumed from step 4 (the "
+          "state after timed step 3)")
+    attempts = {}
+    for h in hist:
+        attempts.setdefault(h["info"]["attempt"], h["info"])
+    check(sorted(attempts) == [1, 2] and attempts[1]["pid"]
+          != attempts[2]["pid"], f"{tag} no second worker: {attempts}")
+    for a, info in sorted(attempts.items()):
+        print(f"{tag} worker {a} (pid {info['pid']}, {info['device']}): "
+              f"process created {info['created'] - t_fit:.2f} s after fit(),"
+              f" loop started {info['loop_start'] - t_fit:.2f} s, state "
+              f"ready {info['ready'] - t_fit:.2f} s"
+              + (f" (load_pytree to the card {info['load_s']:.2f} s)"
+                 if "load_s" in info else ""))
+    losses = [h["loss"] for h in hist]
+    same = [x == y for x, y in zip(losses, ref["losses"])]
+    print(f"{tag} losses {[round(x, 4) for x in losses]}; equal to "
+          f"[train]'s bit for bit, step by step: {same}")
+    check(all(same) and len(same) == len(ref["losses"]),
+          f"{tag} a loss differs from [train]'s")
+    save = hist[TRAIN_RUNTIME["save_at"] - 1]["save"]
+    persisted = result.checkpoint.get_metadata()["time"] - save["t0"]
+    check(save["digest"] == attempts[2]["digest"],
+          f"{tag} the restored state differs from the saved one")
+    print(f"{tag} checkpoint of state step {TRAIN_RUNTIME['save_at']} "
+          f"(params, opt_state, step; "
+          f"{sum(len(x) == 5 for x in save['digest'])} tensors): "
+          f"save_pytree_async returned in {save['return_s']:.2f} s, durable "
+          f"{save['durable_s']:.2f} s after the save, persisted to the run "
+          f"directory {persisted:.2f} s after it; the restored state equals "
+          f"the saved one bit for bit (digests of every tensor's bits)")
+    last = hist[-1]
+    resumed = [h for h in hist if h["info"]["attempt"] == 2]
+    check_train_launches(last["launches"], cfg.num_layers, len(resumed), 2,
+                         f"{tag} worker 2")
+    # Each worker's first step pays its process's warm-up (cuBLAS
+    # handles, allocator growth, the kernels' first load), as [train]'s
+    # untimed warm-up step does; the others are steady.
+    firsts = {min(h["step"] for h in hist if h["info"]["attempt"] == a)
+              for a in attempts}
+    steady = [h["ms"] for h in hist if h["step"] not in firsts]
+    ms = sum(steady) / len(steady)
+    tok_s = tokens / (ms / 1e3)
+    print(f"{tag} ms per step {[round(h['ms'], 1) for h in hist]} "
+          f"(steps {sorted(firsts)} each a worker's first)")
+    dstep = last["device_step"]
+    prev = hist[-2]
+    want_mfu = prev["tokens_per_sec"] * prev["flops_per_token"] \
+        / dstep["peak_flops"]
+    print(f"{tag} on {smi}: {ms:.1f} ms per step, {tok_s:.0f} tokens/s "
+          f"(mean of the {len(steady)} steady steps, each timed alone) "
+          f"beside [train]'s "
+          f"{ref['ms']:.1f} ms, {ref['tok_s']:.0f} tokens/s; train_mfu "
+          f"{tok_s * last['flops_per_token'] / dstep['peak_flops']:.4f}; "
+          f"worker 2's peak memory {last['peak'] / 2**30:.2f} GiB; "
+          f"device_stats.last_step() plane {dstep['plane']!r}, mfu "
+          f"{dstep['mfu']} (step {prev['step']}: {want_mfu:.5f})")
+    check(dstep["plane"] == "train" and abs(dstep["mfu"] - want_mfu)
+          <= 5e-6, f"{tag} device_stats' train step is {dstep}")
+    files = sorted(os.listdir(result.path))
+    print(f"{tag} run directory {files}")
+    check({"result.json", "progress.csv"} <= set(files),
+          f"{tag} result.json / progress.csv missing")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3294,6 +3693,12 @@ def main() -> int:
             np.random.default_rng(10))
         phase_serve(smi, prompts, max_new, first, later, pipe_new, None)
         print("chip_smoke: [serve] alone passed")
+        return 0
+    if sys.argv[1:] == ["--phase", "train"]:
+        # [train-runtime] alone, with [train] before it as its reference.
+        _, train_ref = phase_train(dev, smi)
+        phase_train_runtime(smi, train_ref)
+        print("chip_smoke: [train-runtime] alone passed")
         return 0
     worst = phase_kernels(dev)
     for kname, err in phase_kernels(dev, pr7_draws=True).items():
@@ -3347,7 +3752,7 @@ def main() -> int:
     for kname, err in list(phase_kernels_bwd(dev).items()) + list(
             phase_kernels_sm90(dev).items()):
         worst[kname] = max(worst.get(kname, 0.0), err)
-    launches_train, _ = phase_train(dev, smi)
+    launches_train, train_ref = phase_train(dev, smi)
     phase_train_remat(dev, smi)
     phase_train_depth(dev)
     phase_moe_train(dev, smi)
@@ -3359,6 +3764,7 @@ def main() -> int:
                   main_captures, cfg.num_layers)
     phase_serve(smi, prompts, max_new, pipe_prompts[:16], pipe_prompts[16:],
                 pipe_new, streams)
+    phase_train_runtime(smi, train_ref)
 
     kernels = []
     for kname, spec in KERNELS.items():

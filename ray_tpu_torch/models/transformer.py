@@ -334,15 +334,19 @@ def _embed_tokens(params, tokens, c: TransformerConfig) -> torch.Tensor:
 def lm_logits(x: torch.Tensor, tok_embed: torch.Tensor,
               c: TransformerConfig) -> torch.Tensor:
     """x [..., h] against the tied embedding [vocab, h]: fp32 logits from
-    operands in the working dtype.  On a CUDA device a bf16 product goes
-    through the matmul's fp32-output form (torch.mm with out_dtype), so no
-    fp32 copy of the [vocab, h] table is made; elsewhere both operands are
-    widened to fp32 (exact for bf16 values) and multiplied there."""
+    operands in the working dtype.  On a CUDA device a bf16 product that
+    no gradient flows through goes through the matmul's fp32-output form
+    (torch.mm with out_dtype), so no fp32 copy of the [vocab, h] table is
+    made; elsewhere, and under autograd (that form has no derivative:
+    the unfused cross-entropy's training step), both operands are widened
+    to fp32 (exact for bf16 values) and multiplied there."""
     x = x.to(c.dtype)
     w = tok_embed.to(c.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and c.dtype != torch.float32:
+    differentiable = torch.is_grad_enabled() and (x.requires_grad
+                                                  or w.requires_grad)
+    if x.is_cuda and c.dtype != torch.float32 and not differentiable:
         out = torch.mm(x2, w.t(), out_dtype=torch.float32)
     else:
         out = x2.float() @ w.float().t()

@@ -19,7 +19,11 @@ port's runtime on the card: a num_gpus=1 task sees the card and a CPU
 task none, CUDA tensors come back from the object store bit for bit, and
 a fresh GPU actor's first torch_trace holds kernels; then the serve plane:
 a tiny bf16 LLMServer replica's handle and HTTP streams agree, and a bf16
-KV bundle crosses between two replicas that share the card.
+KV bundle crosses between two replicas that share the card; then the
+Train library: a num_gpus=1 TorchTrainer worker launches the Hopper flash
+kernels with the test process's losses, load_pytree puts a state back on
+the card bit for bit, and a placement group's GPU bundle gives a worker
+that sees the card.
 """
 
 import ctypes
@@ -1345,3 +1349,127 @@ def test_bf16_handoff_across_half_card_replicas(cuda_serve):
     assert len(got) == 10 and got == want
     st = dec.stats.remote().result(timeout_s=60)
     assert st["kv_imports"] == 1 and st["handoff_fallbacks"] == 0
+
+
+# -- the Train library on the card -------------------------------------------
+
+
+def test_train_worker_launches_the_hopper_flash_kernels(cuda_cluster,
+                                                        tmp_path):
+    """TorchTrainer with one num_gpus=1 worker: the loop's device is the
+    card, its tiny bf16 steps (head dim 128, the Hopper kernels' shape)
+    launch the Hopper forward, dq and dk/dv (and no other flash kernel),
+    and its losses are the test process's own on the same card, bit for
+    bit."""
+    train = importlib.import_module(f"{PORT}.train")
+    port = PORT
+    tiny = _SERVE_TINY
+
+    def steps(device, n):
+        """n steps from init(0) on one batch: losses, flash launches
+        by kernel, layers."""
+        import importlib as _il
+
+        import numpy as _np
+
+        tf = _il.import_module(f"{port}.models.transformer")
+        ta = _il.import_module(f"{port}.ops.attention")
+        cfg = tf.TransformerConfig.tiny(**tiny)
+        ts = _il.import_module(f"{port}.train.train_state").ShardedTrainStep(
+            cfg, device=device)
+        state = ts.init(0)
+        batch = {"tokens": _np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 65))}
+        kernels = {k.symbol: k for k in ta.FLASH_FWD_KERNELS
+                   + ta.FLASH_BWD_DQ_KERNELS + ta.FLASH_BWD_DKV_KERNELS}
+        before = {name: k.launches for name, k in kernels.items()}
+        losses = []
+        for _ in range(n):
+            state, m = ts.step(state, batch)
+            losses.append(m["loss"].item())
+        return losses, {name: k.launches - before[name]
+                        for name, k in kernels.items()
+                        if k.launches != before[name]}, cfg.num_layers
+
+    def loop(config):
+        import importlib as _il
+
+        tr = _il.import_module(f"{port}.train")
+        dev = _il.import_module(f"{port}.train.torch_backend").get_device()
+        losses, launches, layers = steps(dev, 2)
+        tr.report({"device": str(dev), "losses": losses,
+                   "launches": launches, "layers": layers})
+
+    res = train.TorchTrainer(
+        loop, scaling_config=train.ScalingConfig(num_workers=1,
+                                                 use_gpu=True),
+        run_config=train.RunConfig(storage_path=str(tmp_path),
+                                   name="card")).fit()
+    m = res.metrics
+    L = m["layers"]
+    assert m["device"] == "cuda:0"
+    assert m["launches"] == {"flash_fwd_sm90": 4 * L,
+                             "flash_bwd_dq_sm90": 2 * L,
+                             "flash_bwd_dkv_sm90": 2 * L}
+    want, _, _ = steps(torch.device("cuda"), 2)
+    assert m["losses"] == want
+
+
+def test_load_pytree_to_the_card_bit_for_bit(cuda, tmp_path):
+    """A train state of CUDA tensors (fp32 params, bf16 moments, counts)
+    saved by save_pytree and save_pytree_async comes back on the card
+    with load_pytree(map_location="cuda"), bit for bit."""
+    tck = importlib.import_module(f"{PORT}.train.checkpoint")
+    cfg = ttf.TransformerConfig.tiny()
+    ts = tts.ShardedTrainStep(cfg, device=cuda, optimizer=tts.default_optimizer(
+        mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16))
+    state, _ = ts.step(ts.init(0), {"tokens": np.random.default_rng(0)
+                                    .integers(0, cfg.vocab_size, (2, 33))})
+    paths = [tck.save_pytree(state, str(tmp_path), step=1),
+             tck.save_pytree_async(state, str(tmp_path), step=2).wait()]
+    want = toptim.tree_leaves(state["params"]) + toptim.tree_leaves(
+        state["opt_state"][1][0].mu)
+
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    for path in paths:
+        back = tck.load_pytree(path, map_location="cuda")
+        assert back["step"] == 1 and back["opt_state"][1][0].count == 1
+        got = toptim.tree_leaves(back["params"]) + toptim.tree_leaves(
+            back["opt_state"][1][0].mu)
+        for a, b in zip(got, want):
+            assert a.is_cuda and a.dtype == b.dtype
+            assert torch.equal(bits(a), bits(b))
+
+
+def test_gpu_bundle_gives_a_worker_that_sees_the_card(cuda_cluster):
+    """A placement group bundle {"CPU": 1, "GPU": 1} and an actor in it
+    asking for those resources, as the train worker group does: a
+    GPU-class worker that sees the driver's card."""
+    rt = cuda_cluster
+    util = importlib.import_module(f"{PORT}.util")
+    pg = util.placement_group([{"CPU": 1, "GPU": 1}])
+    try:
+        assert pg.wait(60)
+
+        class Probe:
+            def look(self):
+                import os
+
+                import torch
+
+                return (torch.cuda.is_available()
+                        and torch.cuda.get_device_name(0),
+                        os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+        actor = rt.remote(Probe).options(
+            resources={"CPU": 1.0, "GPU": 1.0},
+            scheduling_strategy=util.PlacementGroupSchedulingStrategy(
+                placement_group=pg, placement_group_bundle_index=0)).remote()
+        name, visible = rt.get(actor.look.remote(), timeout=300)
+        assert name == torch.cuda.get_device_name(0)
+        assert visible != ""
+        assert pg.state()["bundles"][0]["reserved"]["GPU"] == 1.0
+    finally:
+        util.remove_placement_group(pg)

@@ -1,8 +1,8 @@
 """The port stands alone: no module of it imports JAX or the JAX package.
 
-An AST scan of every module of the port finds no `jax` or `ray_tpu`
-import (its own package aside), and a subprocess imports every module
-with `jax` and `ray_tpu` made unimportable.
+An AST scan of every module of the port finds no `jax`, `orbax`, `flax`,
+`optax` or `ray_tpu` import (its own package aside), and a subprocess
+imports every module with `jax`, `orbax` and `ray_tpu` made unimportable.
 """
 
 import ast
@@ -50,16 +50,21 @@ def test_no_jax_or_reference_imports(script):
     assert paths
     for path in paths:
         roots = set(_imported_roots(path))
-        assert not roots & {"jax", "jaxlib", "flax", "ray_tpu"}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax",
+                            "ray_tpu"}, (path, roots)
 
 
 def test_every_module_imports_without_jax():
     names = sorted(_module_name(p) for p in _modules())
     assert {f"{PORT}.{m}" for m in (
         "serve.llm_engine", "ops.attention", "ops.fused_ce", "train.optim",
-        "train.train_state", "bench")} <= set(names)
+        "train.train_state", "bench", "train", "train.backend",
+        "train.checkpoint", "train.config", "train.session",
+        "train.torch_backend", "train.train_loop_utils", "train.trainer",
+        "train.worker_group", "tune", "tune.callbacks",
+        "util.placement_group", "util.scheduling_strategies")} <= set(names)
     code = ("import sys\n"
-            "for blocked in ('jax', 'jaxlib', 'ray_tpu'):\n"
+            "for blocked in ('jax', 'jaxlib', 'orbax', 'ray_tpu'):\n"
             "    sys.modules[blocked] = None\n"
             f"for name in {names!r}:\n"
             "    __import__(name)\n"

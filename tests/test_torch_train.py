@@ -480,6 +480,55 @@ def test_train_step_first_step_keeps_params():
         assert torch.equal(a, b)
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor, so that
+    lm_logits takes its card branch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_lm_logits_under_autograd_takes_a_differentiable_product(
+        monkeypatch):
+    """On a bf16 CUDA tensor lm_logits uses mm's fp32-output form only
+    where no gradient flows: that form has no derivative, and the
+    unfused cross-entropy's bf16 train step on the card raised "derivative
+    for aten::mm is not implemented" (ROADMAP Queue C).  Under
+    autograd it takes the widened product, so its logits and gradients
+    are the CPU path's bit for bit.  The fp32-output form is stood in for
+    by the widened product without a graph."""
+    cfg = ttf.TransformerConfig.tiny()
+    assert cfg.dtype == torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, cfg.hidden_size, generator=gen)
+    w = torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen)
+    real_mm = torch.mm
+    fp32_out = []
+
+    def mm(a, b, *args, **kw):
+        fp32_out.append("out_dtype" in kw)
+        if "out_dtype" in kw:
+            with torch.no_grad():
+                return real_mm(a.float(), b.float())
+        return real_mm(a, b, *args, **kw)
+
+    monkeypatch.setattr(torch, "mm", mm)
+    with torch.no_grad():
+        ttf.lm_logits(torch.Tensor._make_subclass(_OnCard, x),
+                      torch.Tensor._make_subclass(_OnCard, w), cfg)
+    assert fp32_out == [True]
+    wc = torch.Tensor._make_subclass(_OnCard, w, True)
+    got = ttf.lm_logits(torch.Tensor._make_subclass(_OnCard, x), wc, cfg)
+    assert fp32_out == [True]  # the card branch took no fp32-output mm
+    wp = w.clone().requires_grad_()
+    want = ttf.lm_logits(x, wp, cfg)
+    assert torch.equal(got.as_subclass(torch.Tensor), want)
+    (got * want.detach()).sum().backward()
+    (want * want.detach()).sum().backward()
+    assert torch.equal(wc.grad.as_subclass(torch.Tensor), wp.grad)
+
+
 @pytest.mark.parametrize("mesh", [{"data": 2}, {"stage": 1}])
 def test_sharded_meshes_raise_until_ported(mesh):
     with pytest.raises(NotImplementedError):
