@@ -178,7 +178,28 @@ Phases, each of which raises (exit code != 0) if it fails:
      ms per step and tokens/s beside [train]'s, train_mfu, peak memory,
      the save's seconds to return, to durable and to persisted, and the
      load time.  `--phase train` runs the card, the build, [train] (the
-     reference) and this phase alone.
+     reference) and this phase alone;
+ 14. data and sequence parallelism on the port's runtime (`[seq]`,
+     last): with at least 60 GiB of the card free (gated), two
+     num_gpus=0.5 TorchTrainer ranks (gloo; CUDA tensors staged
+     through pinned host buffers, the transport printed) run ring
+     attention over b = 1, S = 8,192, H = KVH = 14, D = 128 in bf16:
+     each rank's out, dq, dk and dv (of a seeded N(0, 1) cotangent)
+     against one-process flash_attention over the whole sequence on the
+     card, on the rank's own slice (1e-2 in norm, 5e-2 of the slice's
+     largest value), each rank's flash launches (2 forwards; 2 dq and
+     2 dk/dv: every ring step launched, the fully masked one too), the
+     K/V bytes and seconds per ring step, ms per forward and backward;
+     then bench.py's 0.9B-seq8k-b1 (full remat, fused CE, AdamW bf16
+     mu/nu) from the same seed, batch and optimizer, a warm-up and 3
+     steps on {seq: 1} in a num_gpus=1 worker and then on {seq: 2} in
+     two num_gpus=0.5 ranks: every loss within 5e-4 relative of
+     {seq: 1}'s, the step-1 gradient of each layer's wq, wk, wv and wo
+     within 5e-2 in norm of {seq: 1}'s, params bit-equal across ranks (digest), each rank's
+     flash launches per step 2 x n x 16 / n x 16 / n x 16; printed: ms
+     per step, the gradient all-reduce's and the ring's bytes and
+     seconds, each rank's peak memory.  `--phase seq` runs the card,
+     the build and this phase alone.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -1919,6 +1940,10 @@ BWD_CASES = [
     ("end_aligned", 1, 256, 640, 14, 14, 384, 0, True),
     ("noncausal", 1, 200, 300, 14, 14, 0, 0, False),
     ("masked_rows", 1, 320, 256, 14, 14, 100, 200, True),
+    # A ring's chunks ([seq]): a past chunk, every key visible, and a
+    # future one, every row masked (out 0, lse -1e30, zero gradients).
+    ("ring_past", 1, 1024, 1024, 14, 14, 1024, 0, True),
+    ("ring_future", 1, 1024, 1024, 14, 14, 0, 1024, True),
 ]
 
 
@@ -1980,6 +2005,14 @@ def phase_kernels_bwd(dev):
             check(torch.all(got[0][dead] == 0), f"{tag}: masked rows' dq")
             if name == "masked_rows":
                 check(bool(dead.any()), f"{tag}: no fully masked row")
+            if name == "ring_past":
+                check(not bool(dead.any()), f"{tag}: a row saw no key")
+            if name == "ring_future":
+                check(bool(dead.all()) and bool((out == 0).all())
+                      and bool((lse <= tat._NEG_INF / 2).all())
+                      and all(bool((g == 0).all()) for g in got),
+                      f"{tag}: a fully masked chunk's out, lse or "
+                      "gradients are not out 0, lse -1e30, gradients 0")
             print(f"[kernel] flash_bwd {tag}: max_abs_err dq {errs[0]:.3e} "
                   f"dk {errs[1]:.3e} dv {errs[2]:.3e} (tolerance "
                   f"{BWD_REL_TOL[dtype]:g} x max |plain|, max |plain dq| "
@@ -3313,6 +3346,7 @@ def phase_serve(smi, main_prompts, main_new, first, later, pipe_new,
 # [train-runtime]: the Train library on the port's runtime
 
 from ray_tpu_torch import train as ttrain  # noqa: E402
+from ray_tpu_torch.parallel import comm as tcomm  # noqa: E402
 from ray_tpu_torch.train import checkpoint as tckpt  # noqa: E402
 from ray_tpu_torch.train.torch_backend import TorchConfig  # noqa: E402
 
@@ -3326,29 +3360,16 @@ TRAIN_RUNTIME = dict(save_at=4, kill_at=5)
 TRAIN_RUNTIME_FREE = 15e9
 # The two-rank DDP toy: steps and learning rate.
 DDP_TOY = dict(steps=60, lr=0.1)
-_INT_VIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
-def state_digest(tree, path=""):
-    """Every leaf of a train state: a tensor as (path, dtype, shape, and
-    two int64 sums of its bits, one weighted by position, each wrapping,
-    so the same on any device and in any order), any other leaf as
-    itself.  Equal digests: equal bits, short of a collision."""
-    if isinstance(tree, torch.Tensor):
-        bits = tree.detach().contiguous().view(
-            _INT_VIEW[tree.element_size()]).reshape(-1).to(torch.int64)
-        w = torch.arange(1, bits.numel() + 1, device=bits.device,
-                         dtype=torch.int64) * 2654435761
-        return [(path, str(tree.dtype), list(tree.shape),
-                 int((bits * w).sum()), int(bits.sum()))]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in state_digest(
-            tree[k], f"{path}/{k}")]
-    if isinstance(tree, (list, tuple)):
-        return [(path, type(tree).__name__)] + [
-            x for i, v in enumerate(tree)
-            for x in state_digest(v, f"{path}/{i}")]
-    return [(path, tree)]
+def state_digest(state):
+    """A train state's digest: [comm.tree_digest of its tensors' bits,
+    the number of tensors, its structure with every other leaf (the
+    step, the optimizer's counts) as itself].  Equal digests: equal bits,
+    short of a collision."""
+    tensors = {}
+    spec = tckpt._flatten(state, "", tensors)
+    return [tcomm.tree_digest(list(tensors.values())), len(tensors), spec]
 
 
 def train_runtime_loop(config):
@@ -3639,7 +3660,7 @@ def check_train_runtime(tag, smi, ref, cfg, tokens, result, t_fit, fit_s):
           f"{tag} the restored state differs from the saved one")
     print(f"{tag} checkpoint of state step {TRAIN_RUNTIME['save_at']} "
           f"(params, opt_state, step; "
-          f"{sum(len(x) == 5 for x in save['digest'])} tensors): "
+          f"{save['digest'][1]} tensors): "
           f"save_pytree_async returned in {save['return_s']:.2f} s, durable "
           f"{save['durable_s']:.2f} s after the save, persisted to the run "
           f"directory {persisted:.2f} s after it; the restored state equals "
@@ -3678,6 +3699,439 @@ def check_train_runtime(tag, smi, ref, cfg, tokens, result, t_fit, fit_s):
           f"{tag} result.json / progress.csv missing")
 
 
+# ---------------------------------------------------------------------------
+# [seq]: ring attention over a seq mesh of TorchTrainer ranks, and the 0.9B
+# model trained at 8k context on one rank and on two
+
+from ray_tpu_torch.ops import ring_attention as tring  # noqa: E402
+
+# The ring op's shape: the 0.9B model's attention at 8k context, b = 1.
+SEQ_RING = dict(b=1, s=8192, h=14, kvh=14, d=128, ranks=2)
+# The ring op against one-process flash_attention over the whole
+# sequence on the card (the same Hopper kernels), bf16, with a seeded
+# N(0, 1) cotangent so every gradient is O(1) on both ranks.  Each rank's
+# out, dq, dk and dv, on its own slice of the sequence: ||ring - ref|| /
+# ||ref|| within SEQ_RING_L2, and the largest error within SEQ_RING_MAX
+# of that slice's own largest |ref|.  The ring rounds each chunk's out to
+# bf16 before its fp32 merge and the merged out again, and a rank's dq
+# (dk, dv) sums two bf16 partials in bf16: a few 1e-3 expected in norm,
+# a bf16 ulp or two (2^-8 to 2^-6) at the largest element.  A zero or
+# missing chunk is an error of order 1.
+SEQ_RING_L2 = 1e-2
+SEQ_RING_MAX = 5e-2
+# 0.9B at 8k: warm-up (learning rate 0) and timed steps on {seq: 1} and
+# {seq: 2}; every step's loss on {seq: 2} within SEQ_LOSS_RTOL of
+# {seq: 1}'s (bf16 activations: the ring's chunks round differently from
+# one pass; 5.4e-5 read on the card).  The first losses sit near
+# ln(vocab) and move little, so the step-1 gradient of every layer's
+# attention weights (wq, wk, wv, wo, at the initial params, summed over
+# the mesh) is held too: ||g2 - g1|| / ||g1|| within SEQ_GRAD_L2 for
+# each layer and weight (bf16 rounding through 16 layers, ~5e-3
+# expected; a dropped or misplaced chunk moves them by tens of percent).
+SEQ_TRAIN = dict(steps=3, batch=1, seq=8192)
+SEQ_LOSS_RTOL = 5e-4
+SEQ_GRAD_L2 = 5e-2
+SEQ_GRAD_LEAVES = ("wq", "wk", "wv", "wo")
+# Free card memory the two-rank run needs before it starts: two ranks of
+# [train]'s 27.31 GiB peak (PERF.md section 5), with their contexts.
+SEQ_FREE = 60 * 2**30
+
+
+def seq_flash_kernels():
+    return {"flash_fwd_sm90": tat.FLASH_FWD_SM90,
+            "flash_bwd_dq_sm90": tat.FLASH_BWD_DQ_SM90,
+            "flash_bwd_dkv_sm90": tat.FLASH_BWD_DKV_SM90,
+            "flash_fwd": tat.FLASH_FWD, "flash_bwd_dq": tat.FLASH_BWD_DQ,
+            "flash_bwd_dkv": tat.FLASH_BWD_DKV}
+
+
+def seq_ring_inputs(dev):
+    """The ring op's global q, k, v and the cotangent of its out (bf16,
+    on the card) from seed 16."""
+    c = SEQ_RING
+    gen = torch.Generator(device=dev).manual_seed(16)
+    return [torch.randn((c["b"], c["s"], h, c["d"]), generator=gen,
+                       device=dev).to(torch.bfloat16)
+            for h in (c["h"], c["kvh"], c["kvh"], c["h"])]
+
+
+def seq_ring_loop(config):
+    """One rank of the ring op: its chunks of seq_ring_inputs, a warm-up
+    forward and backward, then one timed forward and one timed backward
+    (of the seeded cotangent) with the flash kernels' launches read
+    around each;
+    its out and gradients saved for the driver."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.train.torch_backend import get_device
+
+    dev = get_device()
+    mesh = build_mesh(axes={"seq": SEQ_RING["ranks"]})
+    rank = dist.get_rank()
+    s_loc = SEQ_RING["s"] // SEQ_RING["ranks"]
+    off = mesh.axis_index("seq") * s_loc
+    q, k, v, dout = (t[:, off:off + s_loc].clone()
+                     for t in seq_ring_inputs(dev))
+    for t in (q, k, v):
+        t.requires_grad_()
+    flash = seq_flash_kernels()
+    out = {"rank": rank, "device": str(dev), "offset": off,
+           "transport": tcomm.transport(mesh.get_group("seq"), dev)}
+    for phase in ("warm-up", "timed"):
+        for t in (q, k, v):
+            t.grad = None
+        for kern in flash.values():
+            kern.launches = 0
+        mesh.rotations.update(calls=0, bytes=0, seconds=0.0)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = tring.ring_attention_sharded(q, k, v, mesh, causal=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = {n: kern.launches for n, kern in flash.items()}
+        rot_fwd = dict(mesh.rotations)
+        o.backward(dout)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[phase] = dict(
+            fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3,
+            fwd_launches=fwd,
+            bwd_launches={n: kern.launches - fwd[n]
+                          for n, kern in flash.items()},
+            rotations_fwd=rot_fwd, rotations=dict(mesh.rotations))
+    torch.save({"out": o.detach().cpu(), "dq": q.grad.cpu(),
+                "dk": k.grad.cpu(), "dv": v.grad.cpu()},
+               os.path.join(config["dir"], f"ring_{rank}.pt"))
+    with open(os.path.join(config["dir"], f"ring_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def seq_train_loop(config):
+    """The 0.9B model at 8k context on the mesh config["axes"] (every
+    rank passes the same batch): init(0), the warm-up step, then the
+    timed steps with the flash kernels' launches, the ring's rotations
+    and the gradient all-reduce read around them; the params' digest
+    checked equal on every rank."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.train.torch_backend import get_device
+    from ray_tpu_torch.train.train_loop_utils import get_mesh
+
+    dev = get_device()
+    mesh = get_mesh(config["axes"])
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    cfg = tbench._long_context_ladder(ttf)[1][1]
+    ts = ShardedTrainStep(cfg, mesh, device=dev, optimizer=train_optimizer())
+    state = ts.init(0)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SEQ_TRAIN["batch"], SEQ_TRAIN["seq"] + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    # The step-1 gradient of the attention weights, summed over the mesh.
+    _, grads = ts.grads(state["params"], batch)
+    grad_norm = float(toptim.global_norm(grads))
+    if rank == 0:
+        torch.save({k: grads["blocks"][k].float().cpu()
+                    for k in SEQ_GRAD_LEAVES},
+                   os.path.join(config["dir"], f"grads_{config['name']}.pt"))
+    del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = ts.step(state, batch)
+    losses = [float(m["loss"])]
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    flash = seq_flash_kernels()
+    for kern in flash.values():
+        kern.launches = 0
+    mesh.rotations.update(calls=0, bytes=0, seconds=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    ms, comm_b, comm_s = [], [], []
+    for _ in range(SEQ_TRAIN["steps"]):
+        if dist.is_initialized():
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm_b.append(ts.last_comm["bytes"])
+        comm_s.append(ts.last_comm["seconds"])
+    out = dict(
+        rank=rank, device=str(dev), mesh=dict(mesh.shape), losses=losses,
+        grad_norm=grad_norm,
+        warm_ms=warm_ms, ms=ms, allreduce_bytes=comm_b,
+        allreduce_s=comm_s, rotations=dict(mesh.rotations),
+        launches={n: kern.launches for n, kern in flash.items()},
+        peak=torch.cuda.max_memory_allocated(),
+        digest=str(ts.check_replicated(state["params"])),
+        transport=(tcomm.transport(mesh.get_group("seq"), dev)
+                   if mesh.get_group("seq") is not None else "none"),
+        layers=cfg.num_layers)
+    with open(os.path.join(config["dir"],
+                           f"train_{config['name']}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def seq_fit(loop, name, workers, store, **config):
+    return ttrain.TorchTrainer(
+        loop, train_loop_config=dict(config, dir=store, name=name),
+        backend_config=TorchConfig(backend="gloo"),
+        scaling_config=ttrain.ScalingConfig(
+            num_workers=workers, use_gpu=True,
+            gpus_per_worker=1.0 / workers),
+        run_config=ttrain.RunConfig(storage_path=store, name=name)).fit()
+
+
+def wait_free(need, tag, timeout=60.0):
+    """Free card memory (cudaMemGetInfo) once it reaches `need` bytes, or
+    fail after `timeout` seconds (a worker's memory returns when its
+    process ends)."""
+    deadline = time.time() + timeout
+    while True:
+        free, total = torch.cuda.mem_get_info()
+        if free >= need or time.time() > deadline:
+            break
+        time.sleep(0.5)
+    print(f"{tag} free card memory {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB (needs {need / 2**30:.2f})")
+    check(free >= need, f"{tag} too little free card memory")
+
+
+def seq_expected(n, layers, steps, backward_forwards):
+    """Flash launches per rank: n ring steps per layer and pass, each
+    launched (the fully masked one too); `backward_forwards` forward
+    passes per step (2 under full remat)."""
+    return {"flash_fwd_sm90": backward_forwards * n * layers * steps,
+            "flash_bwd_dq_sm90": n * layers * steps,
+            "flash_bwd_dkv_sm90": n * layers * steps,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def check_seq_ring(tag, store, smi):
+    c = SEQ_RING
+    n = c["ranks"]
+    dev = torch.device("cuda")
+    q, k, v, dout = seq_ring_inputs(dev)
+    for t in (q, k, v):
+        t.requires_grad_()
+    ref = tat.flash_attention(q, k, v, causal=True)
+    ref.backward(dout)
+    want = {"out": ref.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    s_loc = c["s"] // n
+    # What the gate sees of a ring that drops the last rank's past
+    # chunks: its chunk's attention over itself alone.
+    last = slice((n - 1) * s_loc, None)
+    ql, kl, vl = (t.detach()[:, last].clone().requires_grad_()
+                  for t in (q, k, v))
+    alone = tat.flash_attention(ql, kl, vl, causal=True)
+    alone.backward(dout[:, last])
+    dropped = {nm: ((g.float() - want[nm][:, last].float()).norm()
+                    / want[nm][:, last].float().norm()).item()
+               for nm, g in (("out", alone.detach()), ("dq", ql.grad))}
+    print(f"{tag} a ring without rank {n - 1}'s past chunks: its out and dq "
+          f"off by {dropped['out']:.3f} and {dropped['dq']:.3f} in norm "
+          f"(the gate: {SEQ_RING_L2})")
+    check(min(dropped.values()) > 10 * SEQ_RING_L2,
+          f"{tag} the ring op's gate would not see a dropped chunk")
+    del ql, kl, vl, alone
+    errs = {}
+    for r in range(n):
+        with open(os.path.join(store, f"ring_{r}.json")) as f:
+            info = json.load(f)
+        got = torch.load(os.path.join(store, f"ring_{r}.pt"),
+                         weights_only=True)
+        off = info["offset"]
+        for name, w in want.items():
+            g = got[name].to(dev).float()
+            wl = w[:, off:off + s_loc].float()
+            check(not torch.isnan(g).any().item(), f"{tag} rank {r} {name}: "
+                  "NaN")
+            l2 = ((g - wl).norm() / wl.norm()).item()
+            worst = ((g - wl).abs().max() / wl.abs().max()).item()
+            errs[(r, name)] = (l2, worst)
+            check(l2 <= SEQ_RING_L2 and worst <= SEQ_RING_MAX,
+                  f"{tag} rank {r} {name} differs from one-process "
+                  f"flash_attention: {l2:.3e} in norm, {worst:.3e} of the "
+                  f"largest value")
+        t = info["timed"]
+        rot = t["rotations"]
+        fwd_rot = t["rotations_fwd"]
+        print(f"{tag} ring op rank {r} ({info['device']}, transport "
+              f"{info['transport']}, tokens {off}-{off + s_loc - 1}): "
+              f"forward {t['fwd_ms']:.2f} ms, backward {t['bwd_ms']:.2f} ms "
+              f"(warm-up {info['warm-up']['fwd_ms']:.1f} / "
+              f"{info['warm-up']['bwd_ms']:.1f} ms); K/V per ring step "
+              f"{fwd_rot['bytes'] / max(fwd_rot['calls'], 1):,.0f} B in "
+              f"{fwd_rot['seconds'] / max(fwd_rot['calls'], 1) * 1e3:.2f} "
+              f"ms (forward), {rot['calls']} rotations in all "
+              f"({rot['bytes']:,} B, {rot['seconds'] * 1e3:.2f} ms); "
+              f"launches forward {json.dumps(t['fwd_launches'])} backward "
+              f"{json.dumps(t['bwd_launches'])}")
+        want_fwd = seq_expected(n, 1, 1, 1)
+        check(t["fwd_launches"] == {**want_fwd, "flash_bwd_dq_sm90": 0,
+                                    "flash_bwd_dkv_sm90": 0},
+              f"{tag} rank {r}: forward launches {t['fwd_launches']}")
+        check(t["bwd_launches"] == {**want_fwd, "flash_fwd_sm90": 0},
+              f"{tag} rank {r}: backward launches {t['bwd_launches']}")
+        check(rot["calls"] == 2 * (n - 1) and info["transport"]
+              == "gloo-host", f"{tag} rank {r}: rotations {rot}")
+    print(f"{tag} ring op ({n} ranks, b={c['b']}, S={c['s']}, H={c['h']}, "
+          f"KVH={c['kvh']}, D={c['d']}, bf16, causal) against one-process "
+          f"flash_attention over the whole sequence on {smi}, each rank's "
+          f"slice, ||ring - ref|| / ||ref|| and largest error / that "
+          f"slice's largest |ref|: "
+          + ", ".join(f"rank {r} {nm} {a:.2e} / {b:.2e}"
+                      for (r, nm), (a, b) in errs.items())
+          + f" (tolerances {SEQ_RING_L2} / {SEQ_RING_MAX}); every ring "
+          "step launched, "
+          "the fully masked one (rank 0's second) too, as the reference "
+          "launches it")
+    del q, k, v, dout, ref, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def report_seq_train(tag, store, name, n, smi):
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(store, f"train_{name}_{r}.json")) as f:
+            ranks.append(json.load(f))
+    L = ranks[0]["layers"]
+    for res in ranks:
+        steps = SEQ_TRAIN["steps"]
+        rot = res["rotations"]
+        per = (rot["bytes"] / steps, rot["seconds"] / steps * 1e3)
+        print(f"{tag} {name} rank {res['rank']} ({res['device']}, mesh "
+              f"{ {a: s for a, s in res['mesh'].items() if s > 1} }, "
+              f"transport {res['transport']}): losses "
+              f"{[round(x, 5) for x in res['losses']]}; ms per step "
+              f"{[round(x, 1) for x in res['ms']]} (warm-up "
+              f"{res['warm_ms']:.0f}); gradient all-reduce "
+              f"{res['allreduce_bytes'][-1]:,} B in "
+              f"{[round(x * 1e3, 1) for x in res['allreduce_s']]} ms; "
+              f"ring per step {per[0]:,.0f} B in {per[1]:.1f} ms "
+              f"({rot['calls'] // steps} rotations); peak memory "
+              f"{res['peak'] / 2**30:.2f} GiB; on {smi}")
+        per_step = {k: v / steps for k, v in res["launches"].items()}
+        print(f"{tag} {name} rank {res['rank']} flash launches per step "
+              f"{json.dumps(per_step)}")
+        check(res["launches"] == seq_expected(n, L, steps, 2),
+              f"{tag} {name} rank {res['rank']}: flash launches differ from "
+              f"{seq_expected(n, L, steps, 2)}")
+        check(all(math.isfinite(x) for x in res["losses"]),
+              f"{tag} {name}: a loss is not finite")
+    check(len({r["digest"] for r in ranks}) == 1
+          and all(r["losses"] == ranks[0]["losses"] for r in ranks),
+          f"{tag} {name}: the ranks' params or losses differ")
+    return ranks
+
+
+def check_seq_grads(tag, store, runs):
+    """The step-1 attention-weight gradients on {seq: 2} against
+    {seq: 1}'s, layer by layer (SEQ_GRAD_L2), and the grad norms."""
+    g1, g2 = (torch.load(os.path.join(store, f"grads_{n}.pt"),
+                         weights_only=True) for n in ("seq1", "seq2"))
+    rel = {}
+    for k in SEQ_GRAD_LEAVES:
+        for layer, (a, b) in enumerate(zip(g1[k], g2[k])):
+            rel[(k, layer)] = ((b - a).norm() / a.norm()).item()
+    worst = max(rel, key=rel.get)
+    norms = [r["grad_norm"] for r in runs["seq1"] + runs["seq2"]]
+    print(f"{tag} step-1 gradients {{seq: 2}} against {{seq: 1}}, "
+          f"||g2 - g1|| / ||g1|| per layer: "
+          + ", ".join(f"{k} {min(v for (n, _), v in rel.items() if n == k):.2e}"
+                      f"-{max(v for (n, _), v in rel.items() if n == k):.2e}"
+                      for k in SEQ_GRAD_LEAVES)
+          + f"; largest {rel[worst]:.3e} ({worst[0]}, layer {worst[1]}; "
+          f"tolerance {SEQ_GRAD_L2}); global grad norm {{seq: 1}} "
+          f"{norms[0]:.6f}, {{seq: 2}} {norms[1:]}")
+    check(rel[worst] <= SEQ_GRAD_L2,
+          f"{tag} the two-rank step-1 gradients differ from one rank's")
+    check(len(set(norms[1:])) == 1,
+          f"{tag} the two ranks' gradient norms differ")
+
+
+def phase_seq(smi):
+    """Ring attention and the 0.9B model at 8k context on seq meshes of
+    TorchTrainer ranks on the one card (gloo, two num_gpus=0.5 workers)."""
+    tag = "[seq]"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    used0 = device_used_bytes()
+    wait_free(SEQ_FREE, tag)
+    store = tempfile.mkdtemp(prefix="seq_")
+    worker_pids = set()
+    try:
+        drv = rtt.init(num_cpus=4, log_to_driver=True)
+        try:
+            t0 = time.perf_counter()
+            seq_fit(seq_ring_loop, "ring", SEQ_RING["ranks"], store)
+            print(f"{tag} ring op fit {time.perf_counter() - t0:.1f} s")
+            check_seq_ring(tag, store, smi)
+            cfg = tbench._long_context_ladder(ttf)[1][1]
+            check(tbench._long_context_ladder(ttf)[1][0] == "0.9B-seq8k-b1"
+                  and cfg.max_seq_len == SEQ_TRAIN["seq"],
+                  f"{tag} the bench's 0.9B-seq8k-b1 row changed")
+            print(f"{tag} 0.9B-seq8k-b1: {num_params(cfg):,} params, "
+                  f"{cfg.num_layers} layers, {cfg.num_heads} heads of "
+                  f"{cfg.head_dim_}, max_seq_len {cfg.max_seq_len}, remat "
+                  f"{cfg.remat_policy}, fused_ce {cfg.fused_ce}, AdamW bf16 "
+                  f"mu/nu; b={SEQ_TRAIN['batch']}, S={SEQ_TRAIN['seq']}")
+            runs = {}
+            for name, n in (("seq1", 1), ("seq2", 2)):
+                wait_free(SEQ_FREE if n > 1 else SEQ_FREE // 2, tag)
+                t0 = time.perf_counter()
+                seq_fit(seq_train_loop, name, n, store,
+                        axes={"seq": n})
+                print(f"{tag} {name} fit {time.perf_counter() - t0:.1f} s")
+                runs[name] = report_seq_train(tag, store, name, n, smi)
+            one, two = runs["seq1"][0]["losses"], runs["seq2"][0]["losses"]
+            rel = [abs(a - b) / abs(a) for a, b in zip(one, two)]
+            print(f"{tag} losses {{seq: 2}} against {{seq: 1}}, relative: "
+                  f"{[f'{x:.2e}' for x in rel]} (tolerance {SEQ_LOSS_RTOL})")
+            check(max(rel) <= SEQ_LOSS_RTOL,
+                  f"{tag} the two-rank losses differ from one rank's")
+            check_seq_grads(tag, store, runs)
+            ms1 = sum(runs["seq1"][0]["ms"]) / SEQ_TRAIN["steps"]
+            ms2 = [sum(r["ms"]) / SEQ_TRAIN["steps"] for r in runs["seq2"]]
+            print(f"{tag} on {smi}: ms per step {{seq: 1}} {ms1:.1f}, "
+                  f"{{seq: 2}} {[round(x, 1) for x in ms2]} (both ranks share "
+                  f"the card); peak memory per rank "
+                  f"{[round(r['peak'] / 2**30, 2) for r in runs['seq1']]} / "
+                  f"{[round(r['peak'] / 2**30, 2) for r in runs['seq2']]} "
+                  f"GiB; params bit-equal across ranks (digest)")
+            print(f"{tag} TorchConfig(backend='nccl') is not run: NCCL "
+                  "refuses two ranks on one card; the nccl transport "
+                  "(CUDA tensors, no staging) waits for a machine with two "
+                  "cards")
+            for w in drv.control.workers.values():
+                if w.pid and w.kind != "driver":
+                    worker_pids.add(w.pid)
+        finally:
+            rtt.shutdown()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    deadline = time.time() + 30
+    left = worker_pids
+    while True:
+        left = {p for p in left if process_alive(p)}
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used1 = device_used_bytes()
+    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
+          f"used {used0 / 2**30:.2f} GiB before, {used1 / 2**30:.2f} GiB "
+          f"after; the phase {time.perf_counter() - t_phase:.1f} s")
+    check(used1 <= used0 + USED_SLACK,
+          f"{tag} the card's used memory did not return to the driver's own")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3699,6 +4153,10 @@ def main() -> int:
         _, train_ref = phase_train(dev, smi)
         phase_train_runtime(smi, train_ref)
         print("chip_smoke: [train-runtime] alone passed")
+        return 0
+    if sys.argv[1:] == ["--phase", "seq"]:
+        phase_seq(smi)
+        print("chip_smoke: [seq] alone passed")
         return 0
     worst = phase_kernels(dev)
     for kname, err in phase_kernels(dev, pr7_draws=True).items():
@@ -3765,6 +4223,7 @@ def main() -> int:
     phase_serve(smi, prompts, max_new, pipe_prompts[:16], pipe_prompts[16:],
                 pipe_new, streams)
     phase_train_runtime(smi, train_ref)
+    phase_seq(smi)
 
     kernels = []
     for kname, spec in KERNELS.items():

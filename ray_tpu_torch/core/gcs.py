@@ -956,7 +956,8 @@ class ControlServer:
         self.nodes: Dict[str, NodeState] = {"head": head}
         self.placement_groups: Dict[str, PlacementGroupEntry] = {}
         self.store = ShmObjectStore(session_id, config.shm_dir,
-                                    capacity=config.object_store_memory)
+                                    capacity=config.object_store_memory,
+                                    owner=True)
         # Spilling (reference LocalObjectManager + external_storage.py):
         # cold shm objects move to external storage past the usage
         # threshold and restore transparently on next subscribe.

@@ -239,7 +239,8 @@ class NodeManager:
         self.session_dir = os.path.join(
             session_dir_for(self.session_id), f"node-{self.node_id}")
         os.makedirs(os.path.join(self.session_dir, "logs"), exist_ok=True)
-        self.store = ShmObjectStore(self.store_key, self.config.shm_dir)
+        self.store = ShmObjectStore(self.store_key, self.config.shm_dir,
+                                    owner=True)
         # Node-level pull single-flight (op "pull_object"): all workers
         # on this host route remote fetches here, so N co-located
         # consumers of one object cost ONE wire transfer into the

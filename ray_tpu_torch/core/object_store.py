@@ -14,6 +14,16 @@ aliases shm, and a CUDA tensor is copied from the device straight into its
 segment and back (core/serialization.py).  The port's segment files and
 arena take their own prefix (config.ARENA_PREFIX), never the JAX
 package's `raytpu-<session>`.
+
+Departure from the reference (ray_tpu/core/object_store.py `cleanup`):
+there only a clean `shutdown()` removes a session's files, so a head or
+node manager killed by SIGKILL, the OOM killer or a timeout leaves its
+arena in /dev/shm for good.  Here the process that owns a store (a head
+or a node manager: `owner=True`) records its pid under
+`<tmpdir>/ray_tpu_torch/arena_owners/<key>.json` before it creates the
+arena, and reclaims first the files of every recorded key whose owner is
+gone (`reclaim_dead_arenas`).  Files of a live owner, files without a
+record, and every file of the JAX package are left alone.
 """
 
 from __future__ import annotations
@@ -25,8 +35,91 @@ import threading
 from concurrent.futures import Future
 from typing import Any, Dict, Optional
 
-from ray_tpu_torch.core.config import ARENA_PREFIX
+from ray_tpu_torch.core.config import ARENA_PREFIX, tmp_root
 from ray_tpu_torch.core.ids import ObjectID
+
+
+def _owners_dir() -> str:
+    return os.path.join(tmp_root(), "arena_owners")
+
+
+def _start_time(pid: int) -> Optional[str]:
+    """The process's start time in clock ticks since boot (field 22 of
+    /proc/<pid>/stat), which tells a reused pid apart; None off Linux."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[19]
+    except (OSError, IndexError):
+        return None
+
+
+def _alive(pid: int, start: Optional[str]) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        pass  # exists, owned by another user
+    return start is None or _start_time(pid) in (None, start)
+
+
+def record_arena_owner(key: str, shm_dir: str) -> str:
+    """Record this process as the owner of store `key`'s files in
+    `shm_dir`; returns the record's path."""
+    import json
+
+    os.makedirs(_owners_dir(), exist_ok=True)
+    path = os.path.join(_owners_dir(), f"{key}.json")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"pid": os.getpid(), "start": _start_time(os.getpid()),
+                   "shm_dir": shm_dir}, f)
+    os.replace(tmp, path)
+    return path
+
+
+def reclaim_dead_arenas(keep: str = "") -> Dict[str, int]:
+    """Remove the `<ARENA_PREFIX>-<key>-*` files of every recorded store
+    whose owner process is gone, and its record; `keep` names a key to
+    leave alone (a restarted head re-attaching its journaled session).
+    Returns {key: files removed}."""
+    import json
+
+    removed: Dict[str, int] = {}
+    try:
+        names = os.listdir(_owners_dir())
+    except OSError:
+        return removed
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        key = name[:-len(".json")]
+        path = os.path.join(_owners_dir(), name)
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            continue  # being written, or not ours to judge
+        if key == keep or _alive(int(rec["pid"]), rec.get("start")):
+            continue
+        shm_dir, prefix, n = rec.get("shm_dir", "/dev/shm"), \
+            f"{ARENA_PREFIX}-{key}-", 0
+        try:
+            for f_name in os.listdir(shm_dir):
+                if f_name.startswith(prefix):
+                    try:
+                        os.unlink(os.path.join(shm_dir, f_name))
+                        n += 1
+                    except OSError:
+                        pass
+        except OSError:
+            pass
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        removed[key] = n
+    return removed
 
 
 def _default_capacity(shm_dir: str) -> int:
@@ -99,10 +192,16 @@ class ShmObjectStore:
     """
 
     def __init__(self, session_id: str, shm_dir: str = "/dev/shm",
-                 capacity: int = 0):
+                 capacity: int = 0, owner: bool = False):
         self.session_id = session_id
         self.shm_dir = shm_dir
         self._prefix = f"{ARENA_PREFIX}-{session_id}"
+        # The head's and node managers' stores own their files (module
+        # docstring); workers only attach.
+        self._owner_record = None
+        if owner:
+            reclaim_dead_arenas(keep=session_id)
+            self._owner_record = record_arena_owner(session_id, shm_dir)
         self._lock = threading.Lock()
         self._open: Dict[str, object] = {}
         self._arena = None
@@ -303,6 +402,12 @@ class ShmObjectStore:
                         pass
         except OSError:
             pass
+        if self._owner_record is not None:
+            try:
+                os.unlink(self._owner_record)
+            except OSError:
+                pass
+            self._owner_record = None
 
 
 class InProcessStore:

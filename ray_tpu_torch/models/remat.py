@@ -24,7 +24,9 @@ Names, per layer:
   "q", "k", "v"      the products y @ wq, y @ wk, y @ wv; v enters the
                      flash kernel as it is (the reference's attn_v)
   "attn_q", "attn_k" q and k after rope, the flash kernel's inputs
-  "attn"             the flash kernel's out and lse
+  "attn"             the flash kernel's out and lse; under ring
+                     attention step i's are "attn@<i>" (step 0's
+                     "attn"), each kept by a policy that keeps "attn"
   "attn_proj"        attn @ wo
   "gate", "up"       y @ w_gate, y @ w_up
   "router"           the MoE router's logits
@@ -92,7 +94,7 @@ class Remat:
                 return _detach(self.kept[name])
             return fn()
         out = fn()
-        if name in self.keep:
+        if name.split("@")[0] in self.keep:
             self.kept[name] = _detach(out)
         return out
 

@@ -26,9 +26,22 @@ Mixture-of-experts (`num_experts > 0`) replaces the dense MLP with the
 routed experts of models/moe.py (capacity route), whose aux is the
 router's load-balance loss summed over layers.
 
-Left out here: sharding annotations (a mesh concern of a later slice);
-ring attention (`ring_attention=True`) raises NotImplementedError.  With
-`use_flash=True`, attention on a CUDA device runs the flash kernels
+Sequence parallelism: under an ambient mesh (`with mesh:`,
+parallel/mesh.py) whose `seq` axis is larger than one, or with
+`ring_attention=True`, attention is ring attention over that axis
+(ops/ring_attention.py).  `forward_hidden` and `forward` then keep the
+reference's contract, global tokens [b, S] in and global tensors out:
+each rank embeds its chunk of S/n tokens at their global RoPE positions,
+runs the layers with the ring, and the chunks are gathered along `seq`.
+`loss_fn` never gathers: it runs the cross-entropy on the rank's chunk
+and takes the mean over the (nll sum, count) pair summed over the mesh,
+so every rank returns the global loss and its gradient is the rank's
+share, which ShardedTrainStep sums over the mesh.  The other axes
+(fsdp, tensor, expert, stage) and MoE on a mesh of more than one rank
+raise NotImplementedError, naming their ROADMAP items.
+
+Left out here: sharding annotations (a mesh concern of a later slice).
+With `use_flash=True`, attention on a CUDA device runs the flash kernels
 (ops/attention.py); on the CPU it runs their plain versions, as the
 reference does off-TPU.
 """
@@ -49,6 +62,14 @@ from ray_tpu_torch.models.moe import moe_ffn
 from ray_tpu_torch.models.remat import Remat, check_policy, linear, run
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.fused_ce import fused_ce_nll
+from ray_tpu_torch.ops.ring_attention import (
+    gather_axis,
+    local_chunk,
+    ring_attention_sharded,
+)
+from ray_tpu_torch.parallel import comm
+from ray_tpu_torch.parallel.mesh import (Mesh, current_mesh, one_process_mesh,
+                                         require_replicated)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +90,9 @@ class TransformerConfig:
     remat_policy: str = "full"
     scan_layers: bool = True
     use_flash: bool = True
-    # "auto" means no ring here: the port has no mesh yet.
+    # Sequence/context parallelism: ring attention over the mesh "seq"
+    # axis (ops/ring_attention.py).  "auto" uses it iff the ambient mesh
+    # shards seq; True forces; False never.
     ring_attention: Any = "auto"
     fused_ce: bool = False
     num_experts: int = 0
@@ -99,8 +122,6 @@ class TransformerConfig:
 
 def check_supported(c: TransformerConfig) -> None:
     """Raise NotImplementedError for what this slice does not port."""
-    if c.ring_attention is True:
-        raise NotImplementedError("ring attention is not ported yet")
     if not c.scan_layers:
         raise NotImplementedError(
             "the port keeps block params stacked [L, ...] (scan_layers=True)")
@@ -287,19 +308,55 @@ def dense_attention(q, k, v, mask, head_dim: int) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _attention(q, k, v, mask, config: TransformerConfig,
-               memo: Optional[Remat] = None) -> torch.Tensor:
-    """q:[b,s,h,hd] k,v:[b,s,kv,hd] causal attention with GQA."""
+def _use_ring(config: TransformerConfig) -> bool:
     if config.ring_attention is True:
-        raise NotImplementedError("ring attention is not ported yet")
+        return True
+    if config.ring_attention == "auto":
+        mesh = current_mesh()
+        return mesh is not None and mesh.axis_size("seq") > 1
+    return False
+
+
+def _ring_mesh(config: TransformerConfig) -> Optional[Mesh]:
+    """The ambient mesh when attention runs the ring, else None; raises
+    for what a mesh of this slice cannot run."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        require_replicated(mesh.shape)
+        if config.num_experts > 0:
+            raise NotImplementedError(
+                "MoE on a mesh of more than one rank: the router's aux "
+                "loss is not additive over shards; expert parallelism "
+                "waits for the expert-parallel slice (ROADMAP Queue A "
+                "item 6d)")
+    if not _use_ring(config):
+        return None
+    if mesh is None:
+        raise ValueError("ring_attention requires a mesh "
+                         "(run under `with mesh:`)")
+    return mesh
+
+
+def _attention(q, k, v, mask, config: TransformerConfig,
+               memo: Optional[Remat] = None,
+               ring: Optional[Mesh] = None) -> torch.Tensor:
+    """q:[b,s,h,hd] k,v:[b,s,kv,hd] causal attention with GQA; with
+    `ring` (the mesh `_ring_mesh` gave the forward) q, k and v are this
+    rank's chunks of the sequence and attention is the ring over its
+    `seq` axis.  The mesh travels as an argument, not as the ambient
+    mesh: a checkpoint's re-run happens in the backward, on autograd's
+    device thread for CUDA tensors, where no `with mesh:` is entered."""
+    if ring is not None:
+        return ring_attention_sharded(q, k, v, ring, causal=True, memo=memo)
     if config.use_flash:
         return flash_attention(q, k, v, causal=True, memo=memo)
     return dense_attention(q, k, v, mask, config.head_dim_)
 
 
 def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig,
-           memo: Optional[Remat] = None):
-    """One layer; `memo` is the layer's remat policy under checkpoint."""
+           memo: Optional[Remat] = None, ring: Optional[Mesh] = None):
+    """One layer; `memo` is the layer's remat policy under checkpoint,
+    `ring` the mesh whose `seq` axis attention runs the ring over."""
     c = config
     hd = c.head_dim_
     b, s, _ = x.shape
@@ -312,7 +369,7 @@ def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig,
                         memo, "k")
     v = linear(y, bp["wv"].to(c.dtype), memo, "v").reshape(
         b, s, c.num_kv_heads, hd)
-    attn = _attention(q, k, v, mask, c, memo).reshape(b, s,
+    attn = _attention(q, k, v, mask, c, memo, ring).reshape(b, s,
                                                       c.num_heads * hd)
     x = x + linear(attn, bp["wo"].to(c.dtype), memo, "attn_proj")
     y = rms_norm(x, bp["mlp_norm"], c.rms_eps)
@@ -358,9 +415,30 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                    positions: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed + layer stack + final RMSNorm (no lm head): returns
-    (x_normed [b, s, h], moe_aux), moe_aux a zero for dense models."""
+    (x_normed [b, s, h], moe_aux), moe_aux a zero for dense models.
+    Under the ring (module docstring) each rank runs its chunk of the
+    sequence and the chunks are gathered along `seq`."""
     c = config
     check_supported(c)
+    mesh = _ring_mesh(c)
+    if mesh is None:
+        return _forward_chunk(params, tokens, c, positions)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x, aux = _forward_chunk(params, local_chunk(tokens, mesh, "seq", 1), c,
+                            local_chunk(positions, mesh, "seq", 1), mesh)
+    return gather_axis(x, mesh, "seq", 1), aux
+
+
+def _forward_chunk(params: Dict[str, Any], tokens: torch.Tensor,
+                   c: TransformerConfig,
+                   positions: Optional[torch.Tensor] = None,
+                   ring: Optional[Mesh] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """forward_hidden on this rank's tokens at `positions` (their global
+    positions under the ring; 0..s-1 by default), with the ring over
+    `ring`'s seq axis when it is given."""
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -384,10 +462,12 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
         if remat:
             memo = Remat(c.remat_policy)
             x, layer_aux = checkpoint(_block, x, bp, cos, sin, positions,
-                                      mask, c, memo, use_reentrant=False)
+                                      mask, c, memo, ring,
+                                      use_reentrant=False)
             memo.replay = True
         else:
-            x, layer_aux = _block(x, bp, cos, sin, positions, mask, c)
+            x, layer_aux = _block(x, bp, cos, sin, positions, mask, c,
+                                  ring=ring)
         if layer_aux is not None:
             aux = aux + layer_aux
     return rms_norm(x, params["final_norm"], c.rms_eps), aux
@@ -407,12 +487,19 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
     return logits
 
 
-def _masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
-    if mask is None:
-        return nll.mean()
-    m = mask.to(nll.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1)
+def _token_nll(params, inputs, targets, config: TransformerConfig,
+               positions: Optional[torch.Tensor] = None,
+               ring: Optional[Mesh] = None):
+    """(nll [b, s] fp32, moe aux) of next-token prediction, fused or not."""
+    x, aux = _forward_chunk(params, inputs, config, positions, ring)
+    if config.fused_ce:
+        b, s = inputs.shape
+        nll = fused_ce_nll(x.reshape(b * s, -1), params["tok_embed"],
+                           targets.reshape(-1))
+        return nll.view(b, s), aux
+    logp = torch.log_softmax(lm_logits(x, params["tok_embed"], config),
+                             dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0], aux
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
@@ -421,24 +508,51 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     for MoE models (`router_aux_coef` times its mean over layers).
     batch: {"tokens": [b, s+1]} and an optional {"mask": [b, s+1]} (the
     cross-entropy averages over mask[:, 1:], with a denominator of at
-    least 1; the aux term covers every token)."""
+    least 1; the aux term covers every token).
+
+    On a mesh (the ambient one, else this process alone) the
+    cross-entropy runs on this rank's rows and, under the ring, its
+    chunk of the sequence at their global positions, never gathered.
+    The (nll sum, count) pair is summed over the whole mesh, so every
+    rank returns the global mean, bit for bit the same; its gradient is
+    this rank's share (its own sum over the global count), which the
+    step sums over the mesh.  Without the ring every seq rank runs the
+    whole sequence, and the sum counts it once per rank in both terms."""
+    check_supported(config)
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:]
-    if config.fused_ce:
-        b, s = inputs.shape
-        x, aux = forward_hidden(params, inputs, config)
-        nll = fused_ce_nll(x.reshape(b * s, -1), params["tok_embed"],
-                           targets.reshape(-1))
-        ce = _masked_mean(nll, None if mask is None else mask.reshape(-1))
+    ring = _ring_mesh(config) is not None
+    mesh = current_mesh() or one_process_mesh()
+    b, s = inputs.shape
+    n = mesh.axis_size("seq") if ring else 1
+    if s % n:
+        raise ValueError(f"sequence of {s} tokens does not split over {n} "
+                         "seq ranks")
+    s_loc = s // n
+    off = mesh.axis_index("seq") * s_loc if ring else 0
+    positions = (off + torch.arange(s_loc, device=inputs.device)).expand(
+        b, s_loc)
+    nll, aux = _token_nll(params, inputs[:, off:off + s_loc],
+                          targets[:, off:off + s_loc], config, positions,
+                          mesh if ring else None)
+    if mask is None:
+        local = nll.sum()
+        count = torch.tensor(float(nll.numel()), device=nll.device)
     else:
-        logits, aux = forward(params, inputs, config, return_aux=True)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, targets[..., None])[..., 0]
-        ce = _masked_mean(nll, mask)
+        m = mask[:, off:off + s_loc].to(nll.dtype)
+        local = (nll * m).sum()
+        count = m.sum().detach()
+    pair = comm.all_reduce_(torch.stack([local.detach(), count]),
+                            mesh.get_group())
+    total = pair[1].clamp_min(1)
+    # The value is the global mean exactly (local - local is 0); the
+    # gradient flows through this rank's own sum.
+    ce = pair[0] / total + (local - local.detach()) / total
     if config.num_experts > 0:
+        # MoE runs on one rank only (_ring_mesh).
         ce = ce + config.router_aux_coef * aux / config.num_layers
     return ce
 

@@ -326,16 +326,18 @@ class _FlashChunk(torch.autograd.Function):
     outputs.  CUDA tensors run the forward and backward kernels
     `flash_variant` picks; CPU tensors the plain versions.  `memo`, a
     layer's remat policy (models/remat.py `Remat`) or None, may keep
-    (out, lse) under the name "attn", so that a checkpoint's re-run takes
-    them instead of launching the forward again."""
+    (out, lse) under the name `memo_name` ("attn", or "attn@<i>" for a
+    ring's step i: ops/ring_attention.py), so that a checkpoint's re-run
+    takes them instead of launching the forward again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_off, kv_off, causal, sm_scale, memo):
+    def forward(ctx, q, k, v, q_off, kv_off, causal, sm_scale, memo,
+                memo_name):
         def launch():
             return _flash_chunk_fwd(q, k, v, q_off, kv_off, causal,
                                     sm_scale)
 
-        out, lse = launch() if memo is None else memo.run("attn", launch)
+        out, lse = launch() if memo is None else memo.run(memo_name, launch)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (q_off, kv_off, causal, sm_scale)
         ctx.set_materialize_grads(False)
@@ -345,15 +347,16 @@ class _FlashChunk(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         if dout is None and dlse is None:
-            return (None,) * 8
+            return (None,) * 9
         impl = (_flash_chunk_bwd_cuda if q.is_cuda
                 else flash_attention_chunk_bwd_plain)
         dq, dk, dv = impl(q, k, v, out, lse, dout, dlse, *ctx.args)
-        return (dq, dk, dv) + (None,) * 5
+        return (dq, dk, dv) + (None,) * 6
 
 
 def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
-                          sm_scale: Optional[float] = None, memo=None
+                          sm_scale: Optional[float] = None, memo=None,
+                          memo_name: str = "attn"
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offset-aware flash attention returning (out, lse).
 
@@ -362,14 +365,15 @@ def flash_attention_chunk(q, k, v, q_off, kv_off, causal: bool = True,
     out = 0 and lse = -1e30.  CUDA tensors run the kernels
     `flash_variant` picks, CPU tensors the plain versions.
     Both outputs are differentiable; `memo` is a training layer's remat
-    policy (`_FlashChunk`)."""
+    policy and `memo_name` the name it keeps (out, lse) under
+    (`_FlashChunk`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     q_off, kv_off = int(q_off), int(kv_off)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return _FlashChunk.apply(q, k, v, q_off, kv_off, causal, sm_scale,
-                                 memo)
+                                 memo, memo_name)
     return _flash_chunk_fwd(q, k, v, q_off, kv_off, causal, sm_scale)
 
 

@@ -1,0 +1,21 @@
+"""The parallelism layer: meshes of torch.distributed ranks
+(`mesh.py`) and the collectives run over their axes (`comm.py`).
+
+Port of ray_tpu/parallel/.  So far the axes whose params stay
+replicated, `data` and `seq`; logical sharding rules, fsdp / tensor
+placement, the pipeline and expert all_to_all wait for later slices
+(ROADMAP.md, Queue A items 6b-6d).
+"""
+
+from ray_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ORDER,
+    Mesh,
+    MeshConfig,
+    build_mesh,
+    canonical_axis,
+    current_mesh,
+    local_mesh_info,
+    mesh_shape,
+    one_process_mesh,
+    single_axis_mesh,
+)

@@ -305,7 +305,7 @@ def load_pytree(path: str, *, target: Any = None, shardings: Any = None,
     if shardings is not None:
         raise NotImplementedError(
             "load_pytree(shardings=...): restoring onto a sharded layout "
-            "waits for the parallelism slice (ROADMAP Queue A item 6)")
+            "waits for the sharding slice (ROADMAP Queue A item 6b)")
     with open(os.path.join(path, STRUCTURE)) as f:
         meta = json.load(f)
     if meta.get("format") != _FORMAT:

@@ -110,7 +110,7 @@ def get_device():
     """The worker's device (the reference's ray.train.torch.get_device):
     cuda:0 in a GPU-class worker, the CPU otherwise.  A GPU-class worker
     sees the node's cards and takes the first (card visibility per lease
-    is ROADMAP Queue A item 6; a one-card node is exact)."""
+    is ROADMAP Queue A item 6e; a one-card node is exact)."""
     import torch
 
     from ray_tpu_torch.core.api import get_gpu_ids

@@ -11,7 +11,7 @@ through a polled queue.
 The JAX package's TrainWorker merges an XLA_FLAGS entry of `env` into the
 worker's own flags; here every entry of `env` is set as given.  Which
 cards a worker sees is the runtime's business (a GPU-class worker sees
-the node's; per-lease visibility is ROADMAP Queue A item 6).
+the node's; per-lease visibility is ROADMAP Queue A item 6e).
 
 Departure: `train.report` returns only once the driver holds the result.
 In the JAX package it returns when the result is queued, so a worker

@@ -1473,3 +1473,119 @@ def test_gpu_bundle_gives_a_worker_that_sees_the_card(cuda_cluster):
         assert pg.state()["bundles"][0]["reserved"]["GPU"] == 1.0
     finally:
         util.remove_placement_group(pg)
+
+
+# -- ring attention on the card -----------------------------------------------
+
+# A ring's chunks: (b, s, h, hk, d, q_off, kv_off), causal.  A past chunk
+# sees every key; a future chunk none (out 0, lse -1e30, gradients 0).
+RING_CHUNKS = {"ring_past": (1, 128, 4, 4, 128, 128, 0),
+               "ring_future": (1, 128, 4, 4, 128, 0, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RING_CHUNKS))
+def test_ring_chunks_match_plain(cuda, dtype, case):
+    """The forward and both backward kernels at a ring's past and future
+    chunk offsets against their plain versions (the tolerances of
+    test_flash_matches_plain and test_flash_bwd_matches_plain)."""
+    b, s, h, hk, d, q_off, kv_off = RING_CHUNKS[case]
+    rng = np.random.default_rng(s + q_off)
+    q = _rand(rng, (b, s, h, d), dtype, cuda)
+    k = _rand(rng, (b, s, hk, d), dtype, cuda)
+    v = _rand(rng, (b, s, hk, d), dtype, cuda)
+    dout = _rand(rng, (b, s, h, d), dtype, cuda)
+    dlse = _rand(rng, (b * h, s), torch.float32, cuda)
+    out, lse = tat.flash_attention_chunk(q, k, v, q_off, kv_off, True)
+    want_out, want_lse = tat.flash_attention_chunk_plain(q, k, v, q_off,
+                                                         kv_off, True)
+    assert (out.float() - want_out.float()).abs().max().item() <= TOL[dtype]
+    scale = 1.0 / math.sqrt(d)
+    got = tat._flash_chunk_bwd_cuda(q, k, v, out, lse, dout, dlse, q_off,
+                                    kv_off, True, scale)
+    want = tat.flash_attention_chunk_bwd_plain(q, k, v, out, lse, dout, dlse,
+                                               q_off, kv_off, True, scale)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert not torch.isnan(g).any(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * max(w.float().abs().max().item(), 1.0), (name,
+                                                                     err)
+    if case == "ring_future":
+        assert torch.all(out == 0) and torch.all(lse <= tat._NEG_INF / 2)
+        assert all(torch.all(g == 0) for g in got)
+    else:
+        assert torch.all(lse > tat._NEG_INF / 2)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+def test_two_rank_ring_on_the_card_matches_flash_attention(cuda_cluster,
+                                                           tmp_path):
+    """Two num_gpus=0.5 TorchTrainer ranks (gloo, K/V staged through
+    pinned host buffers) run ring attention over their halves of a bf16
+    sequence on cuda:0; each rank's out and gradients (of a seeded
+    N(0, 1) cotangent) equal one-process flash_attention's over the
+    whole sequence on the rank's own slice, to 1e-2 in norm and 5e-2 of
+    the slice's largest value (each chunk's out rounds to bf16 before
+    the merge, and a rank's gradients sum two bf16 partials)."""
+    train = importlib.import_module(f"{PORT}.train")
+    backend = importlib.import_module(f"{PORT}.train.torch_backend")
+    port = PORT
+    shape = (1, 256, 4, 2, 128)  # b, s, h, kvh, d
+
+    def inputs(dev):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        b, s, h, kvh, d = shape
+        return [torch.randn((b, s, n, d), generator=gen, device=dev).to(
+            torch.bfloat16) for n in (h, kvh, kvh, h)]
+
+    def loop(config):
+        import importlib as _il
+        import os as _os
+
+        import torch.distributed as dist
+
+        ring = _il.import_module(f"{port}.ops.ring_attention")
+        mesh_mod = _il.import_module(f"{port}.parallel.mesh")
+        comm = _il.import_module(f"{port}.parallel.comm")
+        dev = _il.import_module(f"{port}.train.torch_backend").get_device()
+        mesh = mesh_mod.build_mesh(axes={"seq": 2})
+        s_loc = shape[1] // 2
+        off = mesh.axis_index("seq") * s_loc
+        q, k, v, dout = (t[:, off:off + s_loc].clone()
+                         for t in inputs(dev))
+        for t in (q, k, v):
+            t.requires_grad_()
+        out = ring.ring_attention_sharded(q, k, v, mesh, causal=True)
+        out.backward(dout)
+        torch.save({"off": off, "device": str(dev),
+                    "transport": comm.transport(mesh.get_group("seq"), dev),
+                    "out": out.detach().cpu(), "dq": q.grad.cpu(),
+                    "dk": k.grad.cpu(), "dv": v.grad.cpu()},
+                   _os.path.join(config["dir"], f"{dist.get_rank()}.pt"))
+
+    train.TorchTrainer(
+        loop, train_loop_config={"dir": str(tmp_path)},
+        backend_config=backend.TorchConfig(backend="gloo"),
+        scaling_config=train.ScalingConfig(num_workers=2, use_gpu=True,
+                                           gpus_per_worker=0.5),
+        run_config=train.RunConfig(storage_path=str(tmp_path),
+                                   name="ring")).fit()
+    dev = torch.device("cuda")
+    q, k, v, dout = inputs(dev)
+    for t in (q, k, v):
+        t.requires_grad_()
+    ref = tat.flash_attention(q, k, v, causal=True)
+    ref.backward(dout)
+    want = {"out": ref.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    for r in range(2):
+        got = torch.load(os.path.join(str(tmp_path), f"{r}.pt"),
+                         weights_only=True)
+        assert got["device"] == "cuda:0" and got["transport"] == "gloo-host"
+        off, n = got["off"], shape[1] // 2
+        for name, w in want.items():
+            wl = w[:, off:off + n].float()
+            diff = got[name].to(dev).float() - wl
+            assert (diff.norm() / wl.norm()).item() <= 1e-2, (r, name)
+            assert (diff.abs().max() / wl.abs().max()).item() <= 5e-2, (
+                r, name)

@@ -529,8 +529,10 @@ def test_lm_logits_under_autograd_takes_a_differentiable_product(
     assert torch.equal(wc.grad.as_subclass(torch.Tensor), wp.grad)
 
 
-@pytest.mark.parametrize("mesh", [{"data": 2}, {"stage": 1}])
+@pytest.mark.parametrize("mesh", [{"fsdp": 2}, {"stage": 1}])
 def test_sharded_meshes_raise_until_ported(mesh):
+    """fsdp and stage wait for their slices; data and seq ranks train
+    (tests/test_torch_sharded_train.py)."""
     with pytest.raises(NotImplementedError):
         tts.ShardedTrainStep(ttf.TransformerConfig.tiny(), mesh=mesh,
                              device="cpu")

@@ -356,10 +356,12 @@ def test_torch_trainer_single_worker_no_group(cluster, tmp_path):
         model = tb.prepare_model(nn.Linear(2, 1))
         assert not hasattr(model, "module")  # no DDP wrap solo
         tr.report({"ok": 1, "device": str(tb.get_device()),
-                   "mesh": tr.get_mesh()})
+                   "mesh": tr.get_mesh().shape})
 
     res = _fit(loop, tmp_path, "solo")
-    assert res.metrics == {"ok": 1, "device": "cpu", "mesh": {"data": 1}}
+    assert res.metrics == {"ok": 1, "device": "cpu", "mesh": {
+        "data": 1, "stage": 1, "fsdp": 1, "seq": 1, "tensor": 1,
+        "expert": 1}}
 
 
 # -- tests/test_tune_callbacks.py --------------------------------------------
