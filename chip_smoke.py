@@ -199,7 +199,22 @@ Phases, each of which raises (exit code != 0) if it fails:
      flash launches per step 2 x n x 16 / n x 16 / n x 16; printed: ms
      per step, the gradient all-reduce's and the ring's bytes and
      seconds, each rank's peak memory.  `--phase seq` runs the card,
-     the build and this phase alone.
+     the build and this phase alone;
+ 15. fully-sharded data parallelism on the port's runtime (`[fsdp]`,
+     after [seq]): bench.py's 0.9B (b = 8, s = 2048, full remat, fused
+     CE, AdamW bf16 mu/nu) from seed 0, the step-1 gradients, a warm-up
+     and 3 steps on {fsdp: 1} in a num_gpus=1 worker and then on
+     {fsdp: 2} in two num_gpus=0.5 ranks (gloo, the gathers and
+     reduce-scatters staged through pinned host buffers): every loss
+     within 2e-4 relative of {fsdp: 1}'s, the step-1 gradient of each
+     layer's wq, wk, wv and wo within 1e-2 in norm, the grad norm within
+     1e-3, each leaf's update over the run within 5e-2 in norm, the
+     gathered params bit-equal across ranks (digest), each rank's bytes
+     of params, mu and nu half of {fsdp: 1}'s for every leaf with an
+     embed dim (the norms whole), flash launches per rank per step
+     32 / 16 / 16; printed: ms per step, the gathers', reduce-scatters'
+     and all-reduces' bytes and seconds, each rank's peak memory.
+     `--phase fsdp` runs the card, the build and this phase alone.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -4132,6 +4147,296 @@ def phase_seq(smi):
           f"{tag} the card's used memory did not return to the driver's own")
 
 
+# ---------------------------------------------------------------------------
+# [fsdp]: the 0.9B model trained with its params and Adam moments split over
+# an fsdp mesh of TorchTrainer ranks, against one rank
+
+# bench.py's "0.9B" row at its own batch (b = 8, s = 2048): a warm-up step
+# (learning rate 0) and FSDP_TRAIN["steps"] timed steps on {fsdp: 1} in a
+# num_gpus=1 worker and on {fsdp: 2} in two num_gpus=0.5 ranks (each runs
+# 4 of the 8 rows).  Gates: every loss within FSDP_LOSS_RTOL of {fsdp: 1}'s;
+# the step-1 gradient of each layer's wq, wk, wv and wo (summed over the
+# mesh, gathered) within FSDP_GRAD_L2 in norm of {fsdp: 1}'s; the global
+# grad norm within FSDP_NORM_RTOL (a norm over one rank's blocks is ~30 %
+# low); each leaf's update over the run (final - initial params, gathered)
+# within FSDP_UPDATE_L2 in norm of {fsdp: 1}'s; each rank's param, mu and
+# nu bytes, counted from its tensors, half of {fsdp: 1}'s for every leaf
+# with an embed dim and equal for the rest.  Both runs round the same
+# bf16 activations; only the batch's split and the order of the gradient
+# sums differ.  Read on the card (NVIDIA H100 80GB HBM3, 700 W): losses
+# 4.81e-5 at most, gradients 2.35e-3 in every layer (bf16 rounding of the
+# upstream gradient, the same relative size through the stack), grad norm
+# 7.0e-6, updates 3.6e-3 to 1.83e-2 (bf16 mu and nu); each gate is a few
+# times its reading.
+FSDP_TRAIN = dict(steps=3, batch=8, seq=2048)
+FSDP_LOSS_RTOL = 2e-4
+FSDP_GRAD_L2 = 1e-2
+FSDP_NORM_RTOL = 1e-3
+FSDP_UPDATE_L2 = 5e-2
+
+
+def fsdp_split(cfg, name):
+    """Whether param leaf `name` ("blocks/wq", ...) has an embed dim."""
+    axes = ttf.logical_axes(cfg)
+    for k in name.split("/"):
+        axes = axes[k]
+    return "embed" in axes
+
+
+def fsdp_flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(fsdp_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def fsdp_train_loop(config):
+    """The 0.9B model on the mesh config["axes"] (every rank passes the
+    same global batch): init(0); the step-1 gradients of the attention
+    weights, gathered; the warm-up step, then the timed steps with the
+    flash kernels' launches and the step's collectives read around
+    them; each rank's bytes of params, mu and nu per leaf; on rank 0 the
+    gathered update over the run (final - initial params), saved."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.train.torch_backend import get_device
+    from ray_tpu_torch.train.train_loop_utils import get_mesh
+
+    dev = get_device()
+    mesh = get_mesh(config["axes"])
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    name, cfg, B, S = tbench._config_ladder(ttf)[0]
+    ts = ShardedTrainStep(cfg, mesh, device=dev, optimizer=train_optimizer())
+    state = ts.init(0)
+    # A gather is a collective: every rank takes part, rank 0 keeps it.
+    start = fsdp_flat(ts.gather(state["params"]))
+    start = {k: v.float().cpu() for k, v in start.items()} if rank == 0 \
+        else None
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (FSDP_TRAIN["batch"], FSDP_TRAIN["seq"] + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    _, grads = ts.grads(state["params"], batch)
+    attn = {k: ts.param_shardings["blocks"][k].gather(grads["blocks"][k])
+            for k in SEQ_GRAD_LEAVES}
+    if rank == 0:
+        torch.save({k: g.float().cpu() for k, g in attn.items()},
+                   os.path.join(config["dir"], f"grads_{config['name']}.pt"))
+    del grads, attn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = ts.step(state, batch)
+    losses = [float(m["loss"])]
+    # The warm-up step's gradient is the step-1 gradient above.
+    grad_norm = float(m["grad_norm"])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    flash = seq_flash_kernels()
+    for kern in flash.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, comm = [], []
+    for _ in range(FSDP_TRAIN["steps"]):
+        if dist.is_initialized():
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = ts.step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append(json.loads(json.dumps(ts.last_comm)))
+    peak = torch.cuda.max_memory_allocated()
+    adam = state["opt_state"][1][0]
+    mu, nu = fsdp_flat(adam.mu), fsdp_flat(adam.nu)
+    held = {k: [v.nbytes, mu[k].nbytes, nu[k].nbytes]
+            for k, v in fsdp_flat(state["params"]).items()}
+    whole = ts.gather(state["params"])
+    digest = str(ts.check_replicated(whole))
+    if rank == 0:
+        torch.save({k: v.float().cpu() - start[k]
+                    for k, v in fsdp_flat(whole).items()},
+                   os.path.join(config["dir"],
+                                f"update_{config['name']}.pt"))
+    del whole, start
+    out = dict(
+        rank=rank, device=str(dev), mesh=dict(mesh.shape), losses=losses,
+        grad_norm=grad_norm, warm_ms=warm_ms, ms=ms, comm=comm,
+        launches={n: kern.launches for n, kern in flash.items()},
+        peak=peak, held=held, digest=digest,
+        transport=(tcomm.transport(mesh.get_group("fsdp"), dev)
+                   if mesh.get_group("fsdp") is not None else "none"),
+        layers=cfg.num_layers, config=name, batch=B, seq=S)
+    with open(os.path.join(config["dir"],
+                           f"train_{config['name']}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def report_fsdp_train(tag, store, name, n, smi):
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(store, f"train_{name}_{r}.json")) as f:
+            ranks.append(json.load(f))
+    L = ranks[0]["layers"]
+    steps = FSDP_TRAIN["steps"]
+    for res in ranks:
+        last = res["comm"][-1]
+        print(f"{tag} {name} rank {res['rank']} ({res['device']}, mesh "
+              f"{ {a: s for a, s in res['mesh'].items() if s > 1} }, "
+              f"transport {res['transport']}): losses "
+              f"{[round(x, 5) for x in res['losses']]}; ms per step "
+              f"{[round(x, 1) for x in res['ms']]} (warm-up "
+              f"{res['warm_ms']:.0f}); per step: gather "
+              f"{last['gather']['bytes']:,} B in "
+              f"{[round(c['gather']['seconds'] * 1e3, 1) for c in res['comm']]}"
+              f" ms, reduce-scatter {last['reduce_scatter']['bytes']:,} B in "
+              f"{[round(c['reduce_scatter']['seconds'] * 1e3, 1) for c in res['comm']]}"
+              f" ms, all-reduce {last['all_reduce']['bytes']:,} B in "
+              f"{[round(c['all_reduce']['seconds'] * 1e3, 1) for c in res['comm']]}"
+              f" ms; peak memory {res['peak'] / 2**30:.2f} GiB; on {smi}")
+        per_step = {k: v / steps for k, v in res["launches"].items()}
+        print(f"{tag} {name} rank {res['rank']} flash launches per step "
+              f"{json.dumps(per_step)}")
+        check(res["launches"] == seq_expected(1, L, steps, 2),
+              f"{tag} {name} rank {res['rank']}: flash launches differ from "
+              f"{seq_expected(1, L, steps, 2)}")
+        check(all(math.isfinite(x) for x in res["losses"]),
+              f"{tag} {name}: a loss is not finite")
+    check(len({r["digest"] for r in ranks}) == 1
+          and all(r["losses"] == ranks[0]["losses"] for r in ranks),
+          f"{tag} {name}: the ranks' gathered params or losses differ")
+    return ranks
+
+
+def check_fsdp(tag, store, runs, smi):
+    one, two = runs["fsdp1"], runs["fsdp2"]
+    cfg = tbench._config_ladder(ttf)[0][1]
+    # Losses.
+    rel = [abs(a - b) / abs(a) for a, b in zip(one[0]["losses"],
+                                               two[0]["losses"])]
+    print(f"{tag} losses {{fsdp: 2}} against {{fsdp: 1}}, relative: "
+          f"{[f'{x:.2e}' for x in rel]} (tolerance {FSDP_LOSS_RTOL})")
+    check(max(rel) <= FSDP_LOSS_RTOL,
+          f"{tag} the two-rank losses differ from one rank's")
+    # Step-1 gradients of the attention weights, layer by layer.
+    g1, g2 = (torch.load(os.path.join(store, f"grads_{n}.pt"),
+                         weights_only=True) for n in ("fsdp1", "fsdp2"))
+    grel = {}
+    for k in SEQ_GRAD_LEAVES:
+        for layer, (a, b) in enumerate(zip(g1[k], g2[k])):
+            grel[(k, layer)] = ((b - a).norm() / a.norm()).item()
+    worst = max(grel, key=grel.get)
+    norms = [r["grad_norm"] for r in one + two]
+    nrel = max(abs(x - norms[0]) / norms[0] for x in norms[1:])
+    print(f"{tag} step-1 gradients {{fsdp: 2}} against {{fsdp: 1}}, "
+          f"||g2 - g1|| / ||g1|| per layer: "
+          + ", ".join(
+              f"{k} {min(v for (n, _), v in grel.items() if n == k):.2e}-"
+              f"{max(v for (n, _), v in grel.items() if n == k):.2e}"
+              for k in SEQ_GRAD_LEAVES)
+          + f"; largest {grel[worst]:.3e} ({worst[0]}, layer {worst[1]}; "
+          f"tolerance {FSDP_GRAD_L2}); global grad norm {{fsdp: 1}} "
+          f"{norms[0]:.6f}, {{fsdp: 2}} {norms[1:]} (relative {nrel:.2e}, "
+          f"tolerance {FSDP_NORM_RTOL})")
+    check(grel[worst] <= FSDP_GRAD_L2,
+          f"{tag} the two-rank step-1 gradients differ from one rank's")
+    check(nrel <= FSDP_NORM_RTOL,
+          f"{tag} the two-rank grad norm differs from one rank's")
+    # The update over the run, leaf by leaf.
+    u1, u2 = (torch.load(os.path.join(store, f"update_{n}.pt"),
+                         weights_only=True) for n in ("fsdp1", "fsdp2"))
+    urel = {k: ((u2[k] - u1[k]).norm() / u1[k].norm()).item() for k in u1}
+    uworst = max(urel, key=urel.get)
+    print(f"{tag} params' update over the {FSDP_TRAIN['steps'] + 1} steps "
+          f"(gathered), ||u2 - u1|| / ||u1|| per leaf: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(urel.items()))
+          + f" (tolerance {FSDP_UPDATE_L2})")
+    check(urel[uworst] <= FSDP_UPDATE_L2,
+          f"{tag} the two-rank update of {uworst} differs from one rank's")
+    del g1, g2, u1, u2
+    # Each rank's bytes, counted from its tensors.
+    whole = one[0]["held"]
+    tot1 = [sum(v[i] for v in whole.values()) for i in range(3)]
+    for res in two:
+        for k, (p, m, v) in res["held"].items():
+            w = whole[k]
+            want = [x // 2 for x in w] if fsdp_split(cfg, k) else w
+            check([p, m, v] == want, f"{tag} rank {res['rank']} holds "
+                  f"{[p, m, v]} B of {k} (params, mu, nu); want {want}")
+        tot = [sum(x[i] for x in res["held"].values()) for i in range(3)]
+        print(f"{tag} rank {res['rank']} holds params {tot[0]:,} B, mu "
+              f"{tot[1]:,} B, nu {tot[2]:,} B against {{fsdp: 1}}'s "
+              f"{tot1[0]:,} / {tot1[1]:,} / {tot1[2]:,} B (each leaf with "
+              f"an embed dim half, the norms whole)")
+    ms1 = sum(one[0]["ms"]) / FSDP_TRAIN["steps"]
+    ms2 = [sum(r["ms"]) / FSDP_TRAIN["steps"] for r in two]
+    print(f"{tag} on {smi}: ms per step {{fsdp: 1}} {ms1:.1f}, {{fsdp: 2}} "
+          f"{[round(x, 1) for x in ms2]} (both ranks share the card; "
+          f"host clock); peak memory per rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in one]} / "
+          f"{[round(r['peak'] / 2**30, 2) for r in two]} GiB; gathered "
+          f"params bit-equal across ranks (digest)")
+
+
+def phase_fsdp(smi):
+    """The 0.9B model with params and Adam moments split over an fsdp
+    mesh of TorchTrainer ranks on the one card (gloo, two num_gpus=0.5
+    workers), against one num_gpus=1 worker."""
+    tag = "[fsdp]"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    used0 = device_used_bytes()
+    store = tempfile.mkdtemp(prefix="fsdp_")
+    worker_pids = set()
+    try:
+        drv = rtt.init(num_cpus=4, log_to_driver=True)
+        try:
+            name, cfg, B, S = tbench._config_ladder(ttf)[0]
+            check(name == "0.9B" and (B, S) == (FSDP_TRAIN["batch"],
+                                                FSDP_TRAIN["seq"]),
+                  f"{tag} the bench's 0.9B row changed")
+            print(f"{tag} {name}: {num_params(cfg):,} params, "
+                  f"{cfg.num_layers} layers, {cfg.num_heads} heads of "
+                  f"{cfg.head_dim_}, remat {cfg.remat_policy}, fused_ce "
+                  f"{cfg.fused_ce}, AdamW bf16 mu/nu; b={B}, s={S}")
+            runs = {}
+            for run, n in (("fsdp1", 1), ("fsdp2", 2)):
+                wait_free(SEQ_FREE if n > 1 else SEQ_FREE // 2, tag)
+                t0 = time.perf_counter()
+                seq_fit(fsdp_train_loop, run, n, store, axes={"fsdp": n})
+                print(f"{tag} {run} fit {time.perf_counter() - t0:.1f} s")
+                runs[run] = report_fsdp_train(tag, store, run, n, smi)
+            check(all(r["transport"] == "gloo-host" for r in runs["fsdp2"]),
+                  f"{tag} the fsdp collectives did not stage through host "
+                  "buffers")
+            check_fsdp(tag, store, runs, smi)
+            for w in drv.control.workers.values():
+                if w.pid and w.kind != "driver":
+                    worker_pids.add(w.pid)
+        finally:
+            rtt.shutdown()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    deadline = time.time() + 30
+    left = worker_pids
+    while True:
+        left = {p for p in left if process_alive(p)}
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used1 = device_used_bytes()
+    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
+          f"used {used0 / 2**30:.2f} GiB before, {used1 / 2**30:.2f} GiB "
+          f"after; the phase {time.perf_counter() - t_phase:.1f} s")
+    check(used1 <= used0 + USED_SLACK,
+          f"{tag} the card's used memory did not return to the driver's own")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4157,6 +4462,10 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "seq"]:
         phase_seq(smi)
         print("chip_smoke: [seq] alone passed")
+        return 0
+    if sys.argv[1:] == ["--phase", "fsdp"]:
+        phase_fsdp(smi)
+        print("chip_smoke: [fsdp] alone passed")
         return 0
     worst = phase_kernels(dev)
     for kname, err in phase_kernels(dev, pr7_draws=True).items():
@@ -4224,6 +4533,7 @@ def main() -> int:
                 pipe_new, streams)
     phase_train_runtime(smi, train_ref)
     phase_seq(smi)
+    phase_fsdp(smi)
 
     kernels = []
     for kname, spec in KERNELS.items():

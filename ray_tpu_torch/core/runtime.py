@@ -192,7 +192,7 @@ class _LeasePool:
 
     __slots__ = ("resources", "runtime_env", "workers", "inflight",
                  "queue", "requested", "requested_at", "idle_since",
-                 "backoff_until")
+                 "worker_idle", "backoff_until")
 
     def __init__(self, resources: Dict[str, float],
                  runtime_env: Optional[dict]):
@@ -211,6 +211,9 @@ class _LeasePool:
         # (cluster saturated) must not clamp pipeline depth forever.
         self.requested_at = 0.0
         self.idle_since: Optional[float] = None
+        # worker_hex -> when it last went idle while others of the pool
+        # stayed busy (_sweep_idle_leases returns it on its own).
+        self.worker_idle: Dict[str, float] = {}
         # Set on denial (cluster saturated): no re-request until then —
         # pipeline onto what we have and retry for freed capacity.
         self.backoff_until = 0.0
@@ -933,6 +936,7 @@ class CoreClient:
                     spec = pool.queue.popleft()
                     task_hex = spec.task_id.hex()
                     infl[task_hex] = spec
+                    pool.worker_idle.pop(whex, None)
                     self._lease_of_obj[spec.return_ids[0].hex()] = (
                         shape, whex, task_hex)
                     assigns.append((whex, addr, spec))
@@ -1187,6 +1191,9 @@ class CoreClient:
                     if pool.queue and pool.requested == 0 and \
                             now >= pool.backoff_until:
                         self._pump_lease_locked(shape, pool)
+                    if not pool.queue:
+                        to_release += self._sweep_idle_workers_locked(
+                            pool, now)
                     continue
                 if pool.idle_since is None:
                     pool.idle_since = now
@@ -1214,6 +1221,34 @@ class CoreClient:
                                   "workers": to_release})
             except Exception:
                 pass
+
+    def _sweep_idle_workers_locked(self, pool: "_LeasePool",
+                                   now: float) -> List[str]:
+        """Lease lock held; `pool` busy with nothing queued.  Take out of
+        the pool, and return, its workers idle past the timeout while
+        others still run (reference OnWorkerIdle returns each idle
+        worker's lease when its scheduling key has nothing queued).
+        Returning only whole pools let a pool hold every CPU of the
+        node while one task ran, and a task of that one blocked in
+        get() on a nested task that no worker was left to run."""
+        out = []
+        for whex in list(pool.workers):
+            if pool.inflight.get(whex):
+                pool.worker_idle.pop(whex, None)
+                continue
+            since = pool.worker_idle.setdefault(whex, now)
+            if now - since < self.config.lease_idle_timeout_s:
+                continue
+            addr = pool.workers.pop(whex)
+            pool.inflight.pop(whex, None)
+            del pool.worker_idle[whex]
+            peers = self._lease_addr_workers.get(addr)
+            if peers is not None:
+                peers.discard(whex)
+                if not peers:
+                    self._lease_addr_workers.pop(addr, None)
+            out.append(whex)
+        return out
 
     def _release_all_leases(self):
         with self._lease_lock:

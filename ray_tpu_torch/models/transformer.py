@@ -36,11 +36,14 @@ runs the layers with the ring, and the chunks are gathered along `seq`.
 `loss_fn` never gathers: it runs the cross-entropy on the rank's chunk
 and takes the mean over the (nll sum, count) pair summed over the mesh,
 so every rank returns the global loss and its gradient is the rank's
-share, which ShardedTrainStep sums over the mesh.  The other axes
-(fsdp, tensor, expert, stage) and MoE on a mesh of more than one rank
-raise NotImplementedError, naming their ROADMAP items.
+share, which ShardedTrainStep sums over the mesh.  On an `fsdp` axis
+the model takes whole params (ShardedTrainStep gathers them) and each
+rank runs its rows of the batch.  The other axes (tensor, expert,
+stage) and MoE on a mesh of more than one rank raise
+NotImplementedError, naming their ROADMAP items.
 
-Left out here: sharding annotations (a mesh concern of a later slice).
+`logical_axes` names each param's dims for the sharding rules
+(parallel/sharding.py), as the reference's does.
 With `use_flash=True`, attention on a CUDA device runs the flash kernels
 (ops/attention.py); on the CPU it runs their plain versions, as the
 reference does off-TPU.
@@ -193,6 +196,39 @@ def init_params(config: TransformerConfig, seed: int = 0, *,
                       else shapes[-2])
 
     return build(param_shapes(config))
+
+
+def logical_axes(config: TransformerConfig) -> Dict[str, Any]:
+    """Logical-axis tree matching init_params, for parallel.sharding rules
+    (both of the reference's layouts: stacked [L, ...] blocks with
+    scan_layers, one layer's shapes without)."""
+    L = ("layers",) if config.scan_layers else ()
+    blocks = {
+        "attn_norm": L + (None,),
+        "wq": L + ("embed", "heads"),
+        "wk": L + ("embed", "heads"),
+        "wv": L + ("embed", "heads"),
+        "wo": L + ("heads", "embed"),
+        "mlp_norm": L + (None,),
+    }
+    if config.num_experts > 0:
+        blocks.update({
+            "router": L + ("embed", None),
+            "we_gate": L + ("expert", "embed", "mlp"),
+            "we_up": L + ("expert", "embed", "mlp"),
+            "we_down": L + ("expert", "mlp", "embed"),
+        })
+    else:
+        blocks.update({
+            "w_gate": L + ("embed", "mlp"),
+            "w_up": L + ("embed", "mlp"),
+            "w_down": L + ("mlp", "embed"),
+        })
+    return {
+        "tok_embed": ("vocab", "embed"),
+        "blocks": blocks,
+        "final_norm": (None,),
+    }
 
 
 def params_from_numpy(tree: Dict[str, Any], config: TransformerConfig,

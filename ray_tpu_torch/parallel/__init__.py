@@ -1,10 +1,10 @@
 """The parallelism layer: meshes of torch.distributed ranks
 (`mesh.py`) and the collectives run over their axes (`comm.py`).
 
-Port of ray_tpu/parallel/.  So far the axes whose params stay
-replicated, `data` and `seq`; logical sharding rules, fsdp / tensor
-placement, the pipeline and expert all_to_all wait for later slices
-(ROADMAP.md, Queue A items 6b-6d).
+Port of ray_tpu/parallel/.  So far the `data` and `seq` axes, whose
+params stay replicated, and the logical sharding rules with fsdp
+placement (`sharding.py`); tensor placement, the pipeline and expert
+all_to_all wait for later slices (ROADMAP.md, Queue A items 6b-6d).
 """
 
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -18,4 +18,15 @@ from ray_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_shape,
     one_process_mesh,
     single_axis_mesh,
+)
+from ray_tpu_torch.parallel.sharding import (  # noqa: F401
+    DEFAULT_RULES,
+    NamedSharding,
+    PartitionSpec,
+    data_sharding,
+    infer_logical_axes,
+    replicated,
+    shard_tree,
+    spec_from_logical,
+    tree_shardings,
 )

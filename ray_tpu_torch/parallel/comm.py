@@ -1,9 +1,12 @@
 """The collectives the parallel layer runs over a mesh's groups.
 
-The reference has none of these: XLA compiles its psum, all-gather and
-ppermute into the program.  Here each is a torch.distributed call on the
-group of a mesh axis, and its transport follows from the group's
-backend, chosen before the call and never retried another way:
+The reference has none of these: XLA compiles its psum, all-gather,
+reduce-scatter and ppermute into the program.  Here each is a
+torch.distributed call on the group of a mesh axis, and its transport
+follows from the group's backend, chosen before the call and never
+retried another way (gloo takes reduce_scatter_tensor on CPU and pinned
+host tensors under the torch of the card's machine, 2.11, as under the
+CPU tests', 2.13):
 
   "nccl"        NCCL on the CUDA tensors themselves;
   "gloo"        gloo on CPU tensors;
@@ -137,6 +140,36 @@ def all_gather(t: torch.Tensor, ranks: List[int], group,
     dist.all_gather(parts, src, group=group)
     by_rank = dict(zip(sorted(ranks), parts))
     out = torch.cat([by_rank[r] for r in ranks], dim=dim)
+    return out.to(t.device) if mode == "gloo-host" else out
+
+
+def reduce_scatter(t: torch.Tensor, ranks: List[int], group,
+                   dim: int) -> torch.Tensor:
+    """This rank's block of the sum of every rank's `t` over `group`:
+    `t` cut along `dim` into len(ranks) equal blocks, the i-th for the
+    rank at position i of `ranks` (the axis order), one
+    reduce_scatter_tensor on the blocks laid out in the group's own
+    (sorted) rank order."""
+    if group is None or len(ranks) == 1:
+        return t
+    n = len(ranks)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split "
+                         f"over {n} ranks")
+    blocks = dict(zip(ranks, t.chunk(n, dim)))
+    flat = torch.cat([blocks[r].reshape(-1) for r in sorted(ranks)])
+    mode = transport(group, t.device)
+    if mode == "gloo-host":
+        src = _host(flat)
+        out = torch.empty(flat.numel() // n, dtype=flat.dtype,
+                          pin_memory=True)
+    else:
+        src, out = flat, flat.new_empty(flat.numel() // n)
+    del flat
+    dist.reduce_scatter_tensor(out, src, group=group)
+    shape = list(t.shape)
+    shape[dim] //= n
+    out = out.view(shape)
     return out.to(t.device) if mode == "gloo-host" else out
 
 

@@ -118,11 +118,12 @@ class MeshConfig:
 
 _ambient = threading.local()
 
-# The axes of more than one rank that shard params or place them apart,
-# and the slice that ports each (ROADMAP.md, Queue A).
+# The axes of more than one rank that place params apart, and the slice
+# that ports each (ROADMAP.md, Queue A).  fsdp is ported
+# (parallel/sharding.py); data and seq replicate params.
 _LATER = {
-    "fsdp": "the sharding slice (ROADMAP Queue A item 6b)",
-    "tensor": "the sharding slice (ROADMAP Queue A item 6b)",
+    "tensor": "the sharding slice's tensor parallelism (ROADMAP Queue A "
+              "item 6b, tensor parallelism)",
     "stage": "the pipeline slice (ROADMAP Queue A item 6c)",
     "expert": "the expert-parallel slice (ROADMAP Queue A item 6d)",
 }
@@ -130,17 +131,18 @@ _LATER = {
 
 def require_replicated(shape: Dict[str, int], named: Sequence[str] = ()
                        ) -> None:
-    """Raise NotImplementedError unless params stay replicated on a mesh
-    of this shape (axis -> size): fsdp, tensor, expert or stage of more
-    than one rank, or a `stage` axis among the `named` ones, waits for a
-    later slice."""
+    """Raise NotImplementedError for what places params apart beyond
+    this slice on a mesh of this shape (axis -> size): tensor, expert or
+    stage of more than one rank, or a `stage` axis among the `named`
+    ones.  data, seq and fsdp pass."""
     named = {canonical_axis(a) for a in named}
     for axis, later in _LATER.items():
         n = shape.get(axis, 1)
         if n > 1 or (axis == "stage" and axis in named):
             raise NotImplementedError(
-                f"mesh axis {axis!r} of {n}: the port runs replicated "
-                f"params on data and seq ranks; {axis} waits for {later}")
+                f"mesh axis {axis!r} of {n}: the port shards params over "
+                f"fsdp and replicates them over data and seq; {axis} "
+                f"waits for {later}")
 
 
 def current_mesh() -> Optional["Mesh"]:

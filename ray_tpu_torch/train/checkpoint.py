@@ -305,7 +305,8 @@ def load_pytree(path: str, *, target: Any = None, shardings: Any = None,
     if shardings is not None:
         raise NotImplementedError(
             "load_pytree(shardings=...): restoring onto a sharded layout "
-            "waits for the sharding slice (ROADMAP Queue A item 6b)")
+            "waits for ROADMAP Queue A item 6b, sharded restore; load the "
+            "whole tree and cut it with ShardedTrainStep.shard_state")
     with open(os.path.join(path, STRUCTURE)) as f:
         meta = json.load(f)
     if meta.get("format") != _FORMAT:

@@ -18,7 +18,9 @@ device and nothing synchronises with it.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
 
@@ -72,10 +74,33 @@ def tree_unflatten(like: Tree, leaves: List[torch.Tensor]) -> Tree:
     return tree_map(lambda _: next(it), like)
 
 
+# The sum of squares that global_norm takes, where a caller set one
+# (sum_squares_by); per thread.
+_sum_squares = threading.local()
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, fp32."""
+    """sqrt of the sum of squares of every leaf, fp32.  Inside
+    `sum_squares_by(fn)` the sum is fn(tree)'s, for both the clip and
+    the reported norm: a tree of shards sums over every shard."""
+    fn = getattr(_sum_squares, "fn", None)
+    if fn is not None:
+        return torch.sqrt(fn(tree))
     return torch.sqrt(sum(t.float().square().sum()
                           for t in tree_leaves(tree)))
+
+
+@contextlib.contextmanager
+def sum_squares_by(fn: Callable[[Tree], torch.Tensor]):
+    """global_norm takes fn(tree), an fp32 0-d tensor, as its sum of
+    squares on this thread while the block runs (ShardedTrainStep on an
+    fsdp mesh, whose gradient leaves are this rank's blocks)."""
+    prev = getattr(_sum_squares, "fn", None)
+    _sum_squares.fn = fn
+    try:
+        yield
+    finally:
+        _sum_squares.fn = prev
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:

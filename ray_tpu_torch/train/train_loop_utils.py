@@ -9,13 +9,12 @@ builds these on `parallel/` (`build_mesh`, `shard_tree`,
   (every worker of a TorchTrainer with more than one worker is a rank);
   `dcn_axes` lay the ranks out by host, the hybrid layout;
 - `prepare_pytree` puts a tree on the worker's device
-  (`torch_backend.get_device`) and broadcasts it from rank 0, so every
-  rank starts from the same replicated params;
-- `shard_batch` keeps the rows of the rank's `data` coordinate, on the
-  worker's device.
-
-Sharding rules and logical axes raise NotImplementedError until the
-sharding slice (ROADMAP Queue A item 6b).
+  (`torch_backend.get_device`), gives every rank rank 0's values and
+  keeps each rank's block of every leaf the sharding rules split
+  (`shard_tree`: on a mesh with `fsdp` of one rank every leaf stays
+  whole);
+- `shard_batch` keeps the rows of the rank's `data` x `fsdp` coordinate
+  (`data_sharding`), on the worker's device.
 """
 
 from __future__ import annotations
@@ -27,6 +26,8 @@ import torch
 
 from ray_tpu_torch.parallel import comm
 from ray_tpu_torch.parallel.mesh import Mesh, build_mesh
+from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
+                                             data_sharding, shard_tree)
 from ray_tpu_torch.train.torch_backend import get_device
 
 
@@ -76,15 +77,12 @@ def _tensors(tree: Any):
 
 
 def prepare_pytree(params: Any, mesh: Optional[Mesh] = None,
-                   rules: Any = None, logical_axes: Any = None) -> Any:
-    """`params` on the worker's device, replicated: every rank of the
-    mesh gets rank 0's values (prepare_model equivalent).  Sharding
-    rules and logical axes raise."""
-    if rules is not None or logical_axes is not None:
-        raise NotImplementedError(
-            "sharding rules / logical axes: the port keeps params "
-            "replicated; placement waits for the sharding slice (ROADMAP "
-            "Queue A item 6b)")
+                   rules: Rules = DEFAULT_RULES,
+                   logical_axes: Any = None) -> Any:
+    """`params` placed by the sharding rules (prepare_model equivalent):
+    on the worker's device, rank 0's values on every rank of the mesh,
+    and of each leaf that `logical_axes` (inferred from the tree's names
+    when None) and `rules` split, this rank's block."""
     mesh = mesh if mesh is not None else get_mesh()
     out = _to_device(params, get_device())
     group = mesh.get_group()
@@ -92,28 +90,22 @@ def prepare_pytree(params: Any, mesh: Optional[Mesh] = None,
         src = int(mesh.ranks.reshape(-1)[0])
         for t in _tensors(out):
             comm.broadcast_(t, src, group)
-    return out
+    return shard_tree(out, mesh, rules, logical_axes)
 
 
 def shard_batch(batch: Any, mesh: Optional[Mesh] = None) -> Any:
     """This rank's rows of a host batch (the leading dim split over the
-    mesh's `data` axis), on the worker's device (prepare_data_loader
-    equivalent, per batch)."""
+    mesh's `data` and `fsdp` axes), on the worker's device
+    (prepare_data_loader equivalent, per batch)."""
     mesh = mesh if mesh is not None else get_mesh()
-    n, i = mesh.axis_size("data"), mesh.axis_index("data")
-
-    def rows(t):
-        if n == 1:
-            return t
-        if t.shape[0] % n:
-            raise ValueError(f"batch of {t.shape[0]} rows does not split "
-                             f"over {n} data ranks")
-        per = t.shape[0] // n
-        return t[i * per:(i + 1) * per]
+    layout = data_sharding(mesh)
 
     def walk(tree):
-        if isinstance(tree, (torch.Tensor, np.ndarray)):
-            return rows(tree)
+        if isinstance(tree, np.ndarray):
+            return layout.shard(torch.from_numpy(
+                np.ascontiguousarray(tree)))
+        if isinstance(tree, torch.Tensor):
+            return layout.shard(tree)
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):

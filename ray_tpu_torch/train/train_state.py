@@ -7,18 +7,29 @@ of torch.distributed ranks (parallel/mesh.py): value and gradient of the
 loss (the flash kernels' autograd Function, ring attention on a `seq`
 axis, fused CE and per-layer remat inside models/transformer.py), the
 gradients summed over the mesh, the optimizer's update, new params.
-Params and optimizer state stay replicated, bit-equal on every rank, so
-the axes are `data` and `seq`; fsdp, tensor and expert of more than one
-rank, and a pipeline `stage` axis, raise NotImplementedError naming the
-slice that ports them.
+
+The params' layout follows the sharding rules (parallel/sharding.py) on
+the model's logical axes, as in the reference: on an `fsdp` axis of more
+than one rank each rank holds its block of every leaf with an `embed`
+dim, and the Adam moments mirror that layout; the other leaves (the
+norms) and every leaf on `data` and `seq` ranks stay replicated,
+bit-equal on every rank.  A step gathers the whole params before the
+loss, reduce-scatters the gradients of the split leaves over `fsdp` and
+sums them over `data`, and sums the replicated leaves' over the mesh.
+The clip's global norm, and the reported `grad_norm`, sum the squares
+of every block.  tensor and expert of more than one rank, a pipeline
+`stage` axis, and fsdp together with seq raise NotImplementedError
+naming the slice that ports them.
 
 `state_from_numpy` carries the reference's train state across (params,
 Adam count/mu/nu, schedule counts), so both sides can start from the same
-state.
+state; `shard_state` cuts a whole state to this rank's blocks and
+`gather_state` makes the whole state again, for a checkpoint.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -30,6 +41,8 @@ from ray_tpu_torch.models import transformer as tfm
 from ray_tpu_torch.parallel import comm
 from ray_tpu_torch.parallel.mesh import (Mesh, canonical_axis, one_process_mesh,
                                          require_replicated)
+from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
+                                             data_sharding, tree_shardings)
 from ray_tpu_torch.train import optim
 
 
@@ -57,28 +70,34 @@ def default_optimizer(learning_rate: float = 3e-4,
 
 
 class ShardedTrainStep:
-    """init/step/eval functions on a mesh of data x seq ranks.
+    """init/step/eval functions on a mesh of data x fsdp or data x seq
+    ranks.
 
     Usage (on every rank of the process group):
-        mesh = build_mesh(axes={"data": 2, "seq": 2})
+        mesh = build_mesh(axes={"data": 2, "fsdp": 2})
         ts = ShardedTrainStep(config, mesh, device="cuda")
         state = ts.init(0)
         state, metrics = ts.step(state, batch)   # batch: {"tokens": [b, s+1]}
 
     `mesh` is a `Mesh`, or None or an axes dict for one process, e.g.
     {"fsdp": 1}.  Every rank passes the same global batch; the step
-    keeps the rows of the rank's `data` coordinate, runs the loss under
-    `with mesh:` (the ring over `seq`), sums the gradients over the mesh
-    in flat buckets (the loss is already the global mean), then clips
-    and updates as on one device.  `num_microbatches` feeds the
-    pipelined loss of the reference, which this step never takes.
-    `last_comm` holds the last step's gradient all-reduce: bytes and
-    seconds.
+    keeps the rows of the rank's `data` x `fsdp` coordinate, gathers the
+    params it holds in blocks, runs the loss under `with mesh:` (the
+    ring over `seq`), reduces the gradients (module docstring; the loss
+    is already the global mean), then clips and updates each rank's
+    blocks as on one device.  `param_shardings` holds each leaf's
+    layout.  `num_microbatches` feeds the pipelined loss of the
+    reference, which this step never takes.  `last_comm` holds the last
+    step's collectives: "bytes" and "seconds" in all, and per kind
+    ("gather", "reduce_scatter", "all_reduce"); the bytes of a gather or
+    reduce-scatter are those of the whole leaves, of an all-reduce those
+    of its buffers.
     """
 
     def __init__(self, config: tfm.TransformerConfig,
                  mesh: Any = None,
                  optimizer: Optional[optim.GradientTransformation] = None,
+                 rules: Rules = DEFAULT_RULES,
                  loss_fn: Optional[Callable] = None,
                  num_microbatches: Optional[int] = None,
                  device: DeviceLike = None):
@@ -88,43 +107,118 @@ class ShardedTrainStep:
             axes = {canonical_axis(a): int(n) for a, n in (mesh or {}).items()}
             require_replicated(axes, named=axes)
             mesh = one_process_mesh(axes)
+        if mesh.axis_size("fsdp") > 1 and mesh.axis_size("seq") > 1:
+            raise NotImplementedError(
+                f"fsdp of {mesh.axis_size('fsdp')} with seq of "
+                f"{mesh.axis_size('seq')}: the sharding slice trains fsdp "
+                "with data ranks; fsdp with seq waits for ROADMAP Queue A "
+                "item 6b, fsdp with seq")
         self.config = config
         self.mesh = mesh
         self.device = resolve_device(device)
         self.optimizer = optimizer or default_optimizer()
+        self.rules = rules
         self.num_microbatches = num_microbatches
         self.loss_fn = loss_fn or (lambda p, b: tfm.loss_fn(p, b, config))
-        self.last_comm = {"bytes": 0, "seconds": 0.0}
+        self.param_logical = tfm.logical_axes(config)
+        self.param_shardings = tree_shardings(mesh, self.param_logical,
+                                              rules)
+        self.batch_sharding = data_sharding(mesh)
+        self._layouts = optim.tree_leaves(self.param_shardings)
+        for layout in self._layouts:
+            axes = {a for split in layout.split_dims(
+                len(layout.spec)).values() for a in split}
+            if axes - {"fsdp"}:
+                raise ValueError(
+                    f"rules {rules} split a param over {sorted(axes)}: "
+                    "params split over fsdp only")
+        self.sharded = not all(s.is_fully_replicated for s in self._layouts)
+        self.last_comm = self._comm_stats()
+
+    @staticmethod
+    def _comm_stats() -> Dict[str, Any]:
+        kinds = ("gather", "reduce_scatter", "all_reduce")
+        return {"bytes": 0, "seconds": 0.0,
+                **{k: {"bytes": 0, "seconds": 0.0} for k in kinds}}
+
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        dt = time.perf_counter() - t0
+        for entry in (self.last_comm, self.last_comm[kind]):
+            entry["bytes"] += nbytes
+            entry["seconds"] += dt
 
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        data = self.mesh.axis_size("data")
         out = {}
+        n = self.mesh.axis_size("data") * self.mesh.axis_size("fsdp")
         for k, v in batch.items():
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.asarray(v))
             if k == "tokens":
                 t = t.long()
-            if data > 1:
-                if t.shape[0] % data:
-                    raise ValueError(
-                        f"batch of {t.shape[0]} rows does not split over "
-                        f"{data} data ranks")
-                n = t.shape[0] // data
-                t = t[self.mesh.axis_index("data") * n:][:n]
-            out[k] = t.to(self.device)
+            if t.shape[0] % n:
+                raise ValueError(
+                    f"batch of {t.shape[0]} rows does not split over "
+                    f"{n} data x fsdp ranks")
+            out[k] = self.batch_sharding.shard(t).to(self.device)
         return out
+
+    def shard(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's blocks of whole `params` (the layout of
+        `param_shardings`)."""
+        return optim.tree_map(lambda t, s: s.shard(t), params,
+                              self.param_shardings)
+
+    def gather(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole params (or any tree of their layout, e.g. gradients
+        or Adam moments) from this rank's blocks."""
+        return optim.tree_map(lambda t, s: s.gather(t), params,
+                              self.param_shardings)
+
+    def _like_params(self, fn: Callable, opt_state: Any) -> Any:
+        """fn on every params-shaped tree of the optimizer state (Adam's
+        mu and nu), the rest as it is: the reference's
+        _constrain_like_params."""
+        def rec(x):
+            if isinstance(x, dict) and _same_keys(x, self.param_shardings):
+                return fn(x)
+            if hasattr(x, "_fields"):
+                return type(x)(*(rec(v) for v in x))
+            if isinstance(x, (tuple, list)):
+                return type(x)(rec(v) for v in x)
+            return x
+
+        return rec(opt_state)
+
+    def shard_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole train state (e.g. state_from_numpy's) cut to this
+        rank's blocks."""
+        return {**state, "params": self.shard(state["params"]),
+                "opt_state": self._like_params(self.shard,
+                                               state["opt_state"])}
+
+    def gather_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole train state from this rank's blocks, the same on
+        every rank: what a checkpoint saves (a rank's blocks are not the
+        state)."""
+        return {**state, "params": self.gather(state["params"]),
+                "opt_state": self._like_params(self.gather,
+                                               state["opt_state"])}
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """The same params on every rank (one seeded generator each),
-        checked by digest on a mesh of more than one rank."""
+        checked by digest on a mesh of more than one rank, then cut to
+        this rank's blocks; the optimizer state is made from the blocks
+        and so mirrors their layout."""
         params = tfm.init_params(self.config, seed, device=self.device)
         self.check_replicated(params)
+        params = self.shard(params)
         return {"params": params, "opt_state": self.optimizer.init(params),
                 "step": 0}
 
     def check_replicated(self, tree: Any) -> int:
         """Raise unless every rank of the mesh holds `tree` bit for bit
-        (comm.tree_digest); returns the digest, the same on every rank."""
+        (comm.tree_digest); returns the digest, the same on every rank.
+        For blocks, check `gather(params)`."""
         same, digests = comm.digests_equal(optim.tree_leaves(tree),
                                            self.mesh.get_group())
         if not same:
@@ -132,25 +226,84 @@ class ShardedTrainStep:
                                f"{digests}")
         return digests[0]
 
+    def _whole(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        if not self.sharded:
+            return params
+        t0 = time.perf_counter()
+        whole = self.gather(params)
+        split = [w for w, s in zip(optim.tree_leaves(whole), self._layouts)
+                 if not s.is_fully_replicated]
+        self._count("gather", sum(w.nbytes for w in split), t0)
+        return whole
+
+    def _reduce(self, grads: Dict[str, Any]) -> Dict[str, Any]:
+        """Whole gradients (this rank's share) to the layout of the
+        params, summed over the mesh."""
+        group = self.mesh.get_group()
+        if group is None:
+            return grads
+        leaves = optim.tree_leaves(grads)
+        split = [not s.is_fully_replicated for s in self._layouts]
+        out = list(leaves)
+        if self.sharded:
+            t0 = time.perf_counter()
+            for i, (g, s) in enumerate(zip(leaves, self._layouts)):
+                if split[i]:
+                    out[i] = s.reduce_scatter(g)
+            self._count("reduce_scatter",
+                        sum(g.nbytes for g, x in zip(leaves, split) if x),
+                        t0)
+            del leaves
+            if self.mesh.axis_size("data") > 1:
+                t0 = time.perf_counter()
+                nbytes = comm.all_reduce_tree_(
+                    [g for g, x in zip(out, split) if x],
+                    self.mesh.get_group("data"))
+                self._count("all_reduce", nbytes, t0)
+        t0 = time.perf_counter()
+        nbytes = comm.all_reduce_tree_(
+            [g for g, x in zip(out, split) if not x], group)
+        self._count("all_reduce", nbytes, t0)
+        return optim.tree_unflatten(grads, out)
+
+    def _sum_squares(self, tree: Dict[str, Any]) -> torch.Tensor:
+        """The sum of squares over every block of a tree in the params'
+        layout: each leaf's own sum, the split leaves' summed over
+        `fsdp` (their blocks are the same on every data rank), added in
+        leaf order."""
+        sq = torch.stack([t.float().square().sum()
+                          for t in optim.tree_leaves(tree)])
+        split = torch.tensor([not s.is_fully_replicated
+                              for s in self._layouts], device=sq.device)
+        total = comm.all_reduce_(torch.where(split, sq, 0.0),
+                                 self.mesh.get_group("fsdp"))
+        return torch.where(split, total, sq).sum()
+
+    def _norms(self):
+        """Where global_norm takes its sum of squares from in the
+        update: every block on an fsdp mesh."""
+        if self.sharded:
+            return optim.sum_squares_by(self._sum_squares)
+        return contextlib.nullcontext()
+
     def grads(self, params: Dict[str, Any], batch: Dict[str, Any]):
         """(loss, gradient of the loss with respect to `params`) on this
-        rank, the gradient summed over the mesh: the global mean's, the
-        same on every rank.  `batch` is the global batch, as for step."""
+        rank, summed over the mesh: the global mean's, in the params'
+        layout (this rank's blocks of the split leaves), the same on
+        every rank that holds the same blocks.  `batch` is the global
+        batch, as for step."""
         batch = self._batch(batch)
+        self.last_comm = self._comm_stats()
+        whole = self._whole(params)
         with torch.enable_grad(), self.mesh:
             live = optim.tree_map(lambda p: p.detach().requires_grad_(),
-                                  params)
+                                  whole)
+            del whole
             loss = self.loss_fn(live, batch)
             grads = optim.tree_unflatten(live, list(torch.autograd.grad(
                 loss, optim.tree_leaves(live))))
         del live
-        group = self.mesh.get_group()
-        if group is not None:
-            t0 = time.perf_counter()
-            nbytes = comm.all_reduce_tree_(optim.tree_leaves(grads), group)
-            self.last_comm = {"bytes": nbytes,
-                              "seconds": time.perf_counter() - t0}
-        return loss, grads
+        return loss, self._reduce(grads)
 
     def step(self, state: Dict[str, Any], batch: Dict[str, Any]):
         """One optimizer step.  Returns the new state and metrics
@@ -159,7 +312,7 @@ class ShardedTrainStep:
         rank."""
         params = state["params"]
         loss, grads = self.grads(params, batch)
-        with torch.no_grad():
+        with torch.no_grad(), self._norms():
             grad_norm = optim.global_norm(grads)
             updates, opt_state = self.optimizer.update(
                 grads, state["opt_state"], params)
@@ -173,8 +326,19 @@ class ShardedTrainStep:
 
     def eval_step(self, params: Dict[str, Any], batch: Dict[str, Any]
                   ) -> torch.Tensor:
-        with torch.no_grad(), self.mesh:
-            return self.loss_fn(params, self._batch(batch)).float()
+        batch = self._batch(batch)
+        with torch.no_grad():
+            whole = self.gather(params)
+            with self.mesh:
+                return self.loss_fn(whole, batch).float()
+
+
+def _same_keys(tree: Any, like: Any) -> bool:
+    """Whether dict `tree` has the nested keys of dict `like`."""
+    if not isinstance(like, dict):
+        return not isinstance(tree, dict)
+    return isinstance(tree, dict) and set(tree) == set(like) and all(
+        _same_keys(tree[k], like[k]) for k in like)
 
 
 def state_from_numpy(tree: Dict[str, Any], config: tfm.TransformerConfig,

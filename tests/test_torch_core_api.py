@@ -4,8 +4,10 @@ The sixteen cases of tests/test_core_api.py, run against the port (one
 cluster for the file: num_cpus=4, num_gpus=0; every blocking call has a
 timeout), plus the port's additions: torch tensors through put/get and
 through tasks (fp32, bf16, int64, non-contiguous, a state dict), the
-copy that get makes of a CPU tensor, and the features that are not ported
-yet raising NotImplementedError that names their ROADMAP item.
+copy that get makes of a CPU tensor, the features that are not ported
+yet raising NotImplementedError that names their ROADMAP item, and a
+nested task after a burst filled the driver's lease pool (the pool now
+returns each idle worker while others run).
 """
 
 import importlib
@@ -29,6 +31,16 @@ T = 60  # seconds: every get / wait in this file is bounded
 def cluster():
     drv = rt.init(num_cpus=4, num_gpus=0, log_to_driver=False)
     try:
+        # Warm the worker pool: a port worker imports torch, so the
+        # first task on a fresh cluster waits seconds for its spawn (and
+        # the zygote template's), longer under a loaded machine.  A
+        # case whose bound is short (test_wait's 3 s) would otherwise
+        # measure that spawn when it runs first on its xdist worker.
+        @rt.remote
+        def warm():
+            return 1
+
+        assert rt.get(warm.remote(), timeout=T) == 1
         yield drv
     finally:
         rt.shutdown()
@@ -101,6 +113,32 @@ def test_task_error_propagates(cluster):
 
 
 def test_nested_tasks(cluster):
+    @rt.remote
+    def inner(x):
+        return x + 1
+
+    @rt.remote
+    def outer(x):
+        return rt.get(inner.remote(x), timeout=T) + 10
+
+    assert rt.get(outer.remote(1), timeout=T) == 12
+
+
+def test_nested_task_after_a_burst_filled_the_lease_pool(cluster):
+    """A burst leases every CPU of the cluster to the driver's pool for
+    its task shape; while one task of that pool blocks in get() on a
+    nested task, the pool's idle workers go back to the head, so the
+    nested task finds a CPU.  The pool used to return its workers only
+    all together, once none of them ran anything, and this waited out
+    the get's timeout."""
+    @rt.remote
+    def hold(x):
+        time.sleep(0.5)
+        return x
+
+    assert rt.get([hold.remote(i) for i in range(8)],
+                  timeout=T) == list(range(8))
+
     @rt.remote
     def inner(x):
         return x + 1

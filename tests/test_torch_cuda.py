@@ -1589,3 +1589,61 @@ def test_two_rank_ring_on_the_card_matches_flash_attention(cuda_cluster,
             assert (diff.norm() / wl.norm()).item() <= 1e-2, (r, name)
             assert (diff.abs().max() / wl.abs().max()).item() <= 5e-2, (
                 r, name)
+
+
+def test_two_rank_reduce_scatter_and_all_gather_on_the_card(cuda_cluster,
+                                                            tmp_path):
+    """Two num_gpus=0.5 TorchTrainer ranks on an fsdp axis (gloo, CUDA
+    tensors staged through pinned host buffers): comm.reduce_scatter of
+    each rank's seeded fp32 and bf16 tensor along dim 1 is, on each rank,
+    its block of the plain sum, and comm.all_gather of the blocks is the
+    plain concatenation, bit for bit (two operands: one rounding)."""
+    train = importlib.import_module(f"{PORT}.train")
+    backend = importlib.import_module(f"{PORT}.train.torch_backend")
+    port = PORT
+    shape = (3, 256, 40)
+
+    def inputs(dev, rank, dtype):
+        gen = torch.Generator(device=dev).manual_seed(11 + rank)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def loop(config):
+        import importlib as _il
+        import os as _os
+
+        import torch.distributed as dist
+
+        mesh_mod = _il.import_module(f"{port}.parallel.mesh")
+        comm = _il.import_module(f"{port}.parallel.comm")
+        dev = _il.import_module(f"{port}.train.torch_backend").get_device()
+        mesh = mesh_mod.build_mesh(axes={"fsdp": 2})
+        group, ranks = mesh.get_group("fsdp"), mesh.axis_ranks("fsdp")
+        out = {"device": str(dev), "transport": comm.transport(group, dev)}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = inputs(dev, dist.get_rank(), dtype)
+            block = comm.reduce_scatter(x, ranks, group, 1)
+            whole = comm.all_gather(block, ranks, group, 1)
+            out[str(dtype)] = (block.cpu(), whole.cpu(), str(block.device))
+        torch.save(out, _os.path.join(config["dir"],
+                                      f"{dist.get_rank()}.pt"))
+
+    train.TorchTrainer(
+        loop, train_loop_config={"dir": str(tmp_path)},
+        backend_config=backend.TorchConfig(backend="gloo"),
+        scaling_config=train.ScalingConfig(num_workers=2, use_gpu=True,
+                                           gpus_per_worker=0.5),
+        run_config=train.RunConfig(storage_path=str(tmp_path),
+                                   name="fsdp_comm")).fit()
+    dev = torch.device("cuda")
+    for r in range(2):
+        got = torch.load(os.path.join(str(tmp_path), f"{r}.pt"),
+                         weights_only=True)
+        assert got["device"] == "cuda:0" and got["transport"] == "gloo-host"
+        for dtype in (torch.float32, torch.bfloat16):
+            block, whole, where = got[str(dtype)]
+            assert where == "cuda:0"
+            total = inputs(dev, 0, dtype) + inputs(dev, 1, dtype)
+            half = shape[1] // 2
+            assert torch.equal(block.to(dev),
+                               total[:, r * half:(r + 1) * half]), (r, dtype)
+            assert torch.equal(whole.to(dev), total), (r, dtype)

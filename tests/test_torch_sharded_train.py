@@ -1,14 +1,16 @@
-"""The port's ShardedTrainStep on data and seq ranks against the JAX
-package's, on the CPU.
+"""The port's ShardedTrainStep on data, seq and fsdp ranks against the
+JAX package's, on the CPU.
 
 The reference runs `ray_tpu.train.train_state.ShardedTrainStep` in this
-process on the 8 virtual CPU devices, on meshes {seq: 2}, {data: 2} and
-{data: 2, seq: 2}; the port runs the same config (`TransformerConfig.tiny`
-in fp32, flash attention: its plain version on the CPU) on 2 or 4 gloo
-ranks in TorchTrainer workers, from the reference's initial state
-carried across with `state_from_numpy`, with
-`default_optimizer(learning_rate=1e-2, warmup_steps=1)` on both sides so
-that 3 steps move the params.  Every rank passes the same global batch.
+process on the 8 virtual CPU devices, on meshes {seq: 2}, {data: 2},
+{data: 2, seq: 2}, {fsdp: 2} and {data: 2, fsdp: 2}; the port runs the
+same config (`TransformerConfig.tiny` in fp32, flash attention: its
+plain version on the CPU) on 2 or 4 gloo ranks in TorchTrainer workers,
+from the reference's initial state carried across with
+`state_from_numpy` (and cut to each rank's blocks with `shard_state`),
+with `default_optimizer(learning_rate=1e-2, warmup_steps=1)` on both
+sides so that 3 steps move the params.  Every rank passes the same
+global batch.
 
 Held, per mesh, with and without a mask, under full remat and "dots",
 with the unfused cross-entropy, and with the fused one without a mask
@@ -20,12 +22,20 @@ tests/test_torch_train.py::test_moe_train_step_matches_jax):
 - each final param to 1e-4 of its largest magnitude (see
   tests/test_torch_train.py: Adam's per-element division carries a
   small gradient's rounding into its update);
-- the ranks' params bit for bit (digest and arrays), and their metrics
-  equal; "dots" equal to full remat bit for bit.
+- the ranks' whole params bit for bit (digest and arrays; gathered from
+  the blocks on fsdp ranks), and their metrics equal; "dots" equal to
+  full remat bit for bit; the bytes of each kind of collective.
+On fsdp ranks also: each rank holds its half of every leaf with an
+embed dim, and Adam's moments in the same layout; losses and grad_norm
+equal to the replicated {data: 2} run's (a norm over one rank's blocks
+would not be); `prepare_pytree` with the model's logical axes,
+`shard_batch` over fsdp, and `reduce_scatter` / `all_gather` in a rank
+order that is not the group's.
 Also: `forward` under a seq mesh equals the reference's dense forward
 (tests/test_ring_pipeline.py:120-147); `get_mesh`, `prepare_pytree` and
-`shard_batch` on a 2-rank mesh; NotImplementedError for fsdp, tensor,
-expert and stage of more than one rank and for MoE on a mesh.
+`shard_batch` on a 2-rank data mesh; a step on {fsdp: 2}; and
+NotImplementedError for tensor, expert and stage of more than one rank
+and for MoE on a mesh.
 
 One cluster for the file (num_cpus=4, num_gpus=0) and one fit per mesh
 shape in a test run, behind module-scoped fixtures whose result the
@@ -51,7 +61,8 @@ ttf = importlib.import_module(f"{PORT}.models.transformer")
 tts = importlib.import_module(f"{PORT}.train.train_state")
 
 MESHES = {"seq2": {"seq": 2}, "data2": {"data": 2},
-          "data2_seq2": {"data": 2, "seq": 2}}
+          "data2_seq2": {"data": 2, "seq": 2}, "fsdp2": {"fsdp": 2},
+          "data2_fsdp2": {"data": 2, "fsdp": 2}}
 STEPS = 3
 # (mask, remat policy, fused CE); "dots" is checked against "full" too.
 CASES = [(False, "full", False), (True, "full", False),
@@ -107,6 +118,7 @@ def _reference(axes, mask, fused):
     for _ in range(STEPS):
         state, m = step.step(state, batch)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    metrics.append(float(step.eval_step(state["params"], batch)))
     return start, metrics, _flat(state["params"])
 
 
@@ -143,7 +155,7 @@ def _run_mesh(tmp_path_factory, name):
         kw = dict(config["cfg"], dtype=torch.float32,
                   param_dtype=torch.float32)
         mesh = mesh_mod.build_mesh(axes=config["axes"])
-        res = {"rank": dist.get_rank()}
+        res = {"rank": dist.get_rank(), "axes": config["axes"]}
 
         def flat(tree, prefix=""):
             out = {}
@@ -161,16 +173,27 @@ def _run_mesh(tmp_path_factory, name):
             step = ts.ShardedTrainStep(
                 cfg, mesh, device="cpu", optimizer=ts.default_optimizer(
                     learning_rate=1e-2, warmup_steps=1))
-            state = ts.state_from_numpy(start, cfg, device="cpu")
+            # The reference's whole state, cut to this rank's blocks (on
+            # data and seq ranks every leaf stays whole).
+            state = step.shard_state(ts.state_from_numpy(start, cfg,
+                                                         device="cpu"))
             metrics = []
             for _ in range(config["steps"]):
                 state, m = step.step(state, config["batches"][mask])
                 metrics.append((m["loss"].item(),
                                 m["grad_norm"].item()))
+            metrics.append(step.eval_step(state["params"],
+                                          config["batches"][mask]).item())
+            adam = state["opt_state"][1][0]
+            whole = step.gather_state(state)
             res[(mask, policy, fused)] = {
-                "metrics": metrics, "params": flat(state["params"]),
-                "digest": step.check_replicated(state["params"]),
-                "comm": dict(step.last_comm)}
+                "metrics": metrics, "params": flat(whole["params"]),
+                "digest": step.check_replicated(whole["params"]),
+                "blocks": flat(state["params"]), "mu": flat(adam.mu),
+                "nu": flat(adam.nu),
+                "whole_mu": flat(whole["opt_state"][1][0].mu),
+                "comm": {k: (dict(v) if isinstance(v, dict) else v)
+                         for k, v in step.last_comm.items()}}
 
         # forward under the mesh: global tokens in, global logits out.
         cfg = tfm.TransformerConfig(**dict(kw, remat=False))
@@ -196,10 +219,14 @@ def _run_mesh(tmp_path_factory, name):
             raised = {}
             for axis in ("fsdp", "tensor", "expert", "stage"):
                 try:
-                    ts.ShardedTrainStep(cfg, mesh_mod.build_mesh(
+                    made = ts.ShardedTrainStep(cfg, mesh_mod.build_mesh(
                         axes={axis: 2}), device="cpu")
                 except NotImplementedError as e:
                     raised[axis] = str(e)
+                else:
+                    res[f"{axis}_wq_spec"] = (
+                        tuple(made.param_shardings["blocks"]["wq"].spec),
+                        made.sharded)
             moe = tfm.TransformerConfig(**dict(kw, num_experts=4))
             try:
                 with mesh:
@@ -209,11 +236,37 @@ def _run_mesh(tmp_path_factory, name):
                                 moe)
             except NotImplementedError as e:
                 raised["moe"] = str(e)
-            try:
-                tr.prepare_pytree(tree, m, rules={})
-            except NotImplementedError as e:
-                raised["rules"] = str(e)
+            # Rules that map nothing, and the default rules on the names
+            # of a tree with no embed axis: every leaf replicated.
+            got = tr.prepare_pytree(tree, m, rules={})
+            res["rules"] = (got["w"].tolist(), got["n"][0].tolist())
             res["raised"] = raised
+        if config["axes"] == {"fsdp": 2}:
+            # The Train library's helpers on two fsdp ranks: the tree
+            # placed by the model's logical axes is the step's blocks of
+            # rank 0's values; the batch's rows split over fsdp.
+            m = tr.get_mesh({"fsdp": 2})
+            rank = dist.get_rank()
+            cfg = tfm.TransformerConfig(**kw)
+            whole = tfm.init_params(cfg, 7 + rank, device="cpu")
+            placed = tr.prepare_pytree(whole, m,
+                                       logical_axes=tfm.logical_axes(cfg))
+            step = ts.ShardedTrainStep(cfg, m, device="cpu")
+            want = step.shard(tfm.init_params(cfg, 7, device="cpu"))
+            want = flat(want)
+            res["prepare"] = {k: (v.shape, bool(np.array_equal(v, want[k])))
+                              for k, v in flat(placed).items()}
+            res["shard"] = tr.shard_batch(
+                {"x": np.arange(8).reshape(4, 2)}, m)["x"].tolist()
+            # reduce_scatter and all_gather in a rank order that is not
+            # the group's own (sorted) one.
+            order = list(reversed(m.axis_ranks("fsdp")))
+            x = torch.arange(12.0).reshape(2, 6) * (rank + 1)
+            res["reduce_scatter"] = comm.reduce_scatter(
+                x, order, m.get_group("fsdp"), 1).tolist()
+            res["all_gather"] = comm.all_gather(
+                torch.full((1, 2), float(rank)), order, m.get_group("fsdp"),
+                0).tolist()
         with open(os.path.join(config["out"],
                                f"rank{dist.get_rank()}.pkl"), "wb") as f:
             pickle.dump(res, f)
@@ -254,19 +307,44 @@ def data2_seq2(request, tmp_path_factory):
     return _shared_mesh(request, tmp_path_factory, "data2_seq2")
 
 
+@pytest.fixture(scope="module")
+def fsdp2(request, tmp_path_factory):
+    return _shared_mesh(request, tmp_path_factory, "fsdp2")
+
+
+@pytest.fixture(scope="module")
+def data2_fsdp2(request, tmp_path_factory):
+    return _shared_mesh(request, tmp_path_factory, "data2_fsdp2")
+
+
+def _split(name):
+    """Whether the tiny model's leaf `name` has an embed dim (the one the
+    rules split over fsdp), and which dim that is."""
+    axes = ttf.logical_axes(ttf.TransformerConfig.tiny())
+    for k in name.split("/"):
+        axes = axes[k]
+    return ("embed" in axes), (axes.index("embed") if "embed" in axes
+                               else None)
+
+
 def _check_steps(run, mask, policy, fused):
     refs, ranks, _ = run
     _, want_metrics, want_params = refs[mask, fused]
     got = ranks[0][(mask, policy, fused)]
-    for (tl, tn), (jl, jn) in zip(got["metrics"], want_metrics):
+    assert len(got["metrics"]) == len(want_metrics) == STEPS + 1
+    for (tl, tn), (jl, jn) in zip(got["metrics"][:-1], want_metrics[:-1]):
         np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
         np.testing.assert_allclose(tn, jn, rtol=NORM_RTOL)
+    # eval_step on the final params (gathered on fsdp ranks).
+    np.testing.assert_allclose(got["metrics"][-1], want_metrics[-1],
+                               rtol=LOSS_RTOL)
     assert set(got["params"]) == set(want_params)
     for name, w in want_params.items():
         scale = max(np.abs(w).max(), 1e-6)
         assert np.abs(got["params"][name] - w).max() <= PARAM_TOL * scale, \
             name
-    # Replicated: every rank's params bit for bit, the same metrics.
+    # Every rank's whole params bit for bit (gathered from the blocks on
+    # an fsdp mesh), the same metrics.
     for r in ranks[1:]:
         other = r[(mask, policy, fused)]
         assert other["digest"] == got["digest"]
@@ -277,9 +355,23 @@ def _check_steps(run, mask, policy, fused):
     full = ranks[0][(mask, "full", fused)]
     assert got["metrics"] == full["metrics"]
     assert got["digest"] == full["digest"]
-    # The gradient all-reduce ran in flat buckets over the whole tree.
-    n_params = sum(p.size for p in got["params"].values())
-    assert got["comm"]["bytes"] == 4 * n_params
+    # The collectives' bytes: on data and seq ranks one all-reduce in
+    # flat buckets over the whole tree; on fsdp ranks a gather and a
+    # reduce-scatter of the split leaves (whole bytes), the replicated
+    # leaves' all-reduce over the mesh and, with data ranks, the blocks'
+    # over data.
+    axes = ranks[0]["axes"]
+    fsdp, data = axes.get("fsdp", 1), axes.get("data", 1)
+    n_split = sum(p.size for name, p in got["params"].items()
+                  if fsdp > 1 and _split(name)[0])
+    n_rep = sum(p.size for p in got["params"].values()) - n_split
+    comm = got["comm"]
+    assert comm["gather"]["bytes"] == comm["reduce_scatter"]["bytes"] \
+        == 4 * n_split
+    assert comm["all_reduce"]["bytes"] == 4 * n_rep + (
+        4 * n_split // fsdp if data > 1 else 0)
+    assert comm["bytes"] == sum(comm[k]["bytes"] for k in (
+        "gather", "reduce_scatter", "all_reduce"))
 
 
 @pytest.mark.parametrize("mask,policy,fused", CASES)
@@ -295,6 +387,81 @@ def test_data2_steps_match_reference(data2, mask, policy, fused):
 @pytest.mark.parametrize("mask,policy,fused", CASES)
 def test_data2_seq2_steps_match_reference(data2_seq2, mask, policy, fused):
     _check_steps(data2_seq2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("mask,policy,fused", CASES)
+def test_fsdp2_steps_match_reference(fsdp2, mask, policy, fused):
+    _check_steps(fsdp2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("mask,policy,fused", CASES)
+def test_data2_fsdp2_steps_match_reference(data2_fsdp2, mask, policy,
+                                           fused):
+    _check_steps(data2_fsdp2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("name", ["fsdp2", "data2_fsdp2"])
+def test_fsdp_ranks_hold_their_blocks(name, request):
+    """Each rank holds, of every leaf with an embed dim, its half along
+    that dim (the block at its fsdp coordinate of the gathered params),
+    and Adam's mu and nu in the same layout; the other leaves whole."""
+    _, ranks, _ = request.getfixturevalue(name)
+    for r, res in enumerate(ranks):
+        got = res[False, "full", False]
+        f = r % 2  # the fsdp coordinate: fsdp is the inner axis here
+        for leaf, whole in got["params"].items():
+            split, dim = _split(leaf)
+            block = got["blocks"][leaf]
+            if not split:
+                np.testing.assert_array_equal(block, whole)
+                continue
+            n = whole.shape[dim] // 2
+            want = np.take(whole, np.arange(f * n, (f + 1) * n), axis=dim)
+            np.testing.assert_array_equal(block, want)
+            for moment in ("mu", "nu"):
+                assert got[moment][leaf].shape == block.shape, (leaf, moment)
+            mu = got["whole_mu"][leaf]
+            np.testing.assert_array_equal(
+                got["mu"][leaf],
+                np.take(mu, np.arange(f * n, (f + 1) * n), axis=dim))
+        whole_bytes = sum(p.nbytes for p in got["params"].values())
+        block_bytes = sum(p.nbytes for p in got["blocks"].values())
+        assert block_bytes < whole_bytes * 0.6
+
+
+@pytest.mark.parametrize("name", ["fsdp2", "data2_fsdp2"])
+def test_fsdp_grad_norm_equals_replicated_runs(name, request, data2):
+    """The same global batch on fsdp ranks and on replicated data ranks:
+    the same losses and global gradient norms (a norm over one rank's
+    blocks alone would differ), within the reference tolerances."""
+    _, fsdp_ranks, _ = request.getfixturevalue(name)
+    _, data_ranks, _ = data2
+    for case in CASES:
+        for (fl, fn), (dl, dn) in zip(fsdp_ranks[0][case]["metrics"][:-1],
+                                      data_ranks[0][case]["metrics"][:-1]):
+            np.testing.assert_allclose(fl, dl, rtol=LOSS_RTOL)
+            np.testing.assert_allclose(fn, dn, rtol=NORM_RTOL)
+
+
+def test_train_helpers_on_two_fsdp_ranks(fsdp2):
+    """prepare_pytree places rank 0's tree by the model's logical axes
+    (the step's blocks), shard_batch splits the rows over fsdp, and
+    reduce_scatter / all_gather follow the rank order they are given."""
+    _, ranks, _ = fsdp2
+    for r, res in enumerate(ranks):
+        for leaf, (shape, equal) in res["prepare"].items():
+            assert equal, leaf
+            split, dim = _split(leaf)
+            if split:
+                assert shape[dim] == 32 // 2, (leaf, shape)
+        assert res["shard"] == ([[0, 1], [2, 3]] if r == 0
+                                else [[4, 5], [6, 7]])
+        # Both ranks' x summed is 3 * arange; rank r sits at position
+        # 1 - r of the reversed order, so it holds block 1 - r.
+        total = 3 * np.arange(12.0).reshape(2, 6)
+        np.testing.assert_array_equal(
+            res["reduce_scatter"], total[:, 3 * (1 - r):3 * (2 - r)])
+        assert res["all_gather"] == [[1.0, 1.0], [0.0, 0.0]]
 
 
 @pytest.mark.parametrize("name", ["seq2", "data2_seq2"])
@@ -325,16 +492,20 @@ def test_train_helpers_on_two_ranks(data2):
 
 
 def test_later_axes_and_moe_raise_on_a_mesh(data2):
+    """On two ranks: a step on {fsdp: 2} splits wq over fsdp; tensor,
+    expert and stage of two ranks, and MoE on a mesh, raise naming their
+    items; rules that map nothing place a tree replicated."""
     _, ranks, _ = data2
-    raised = ranks[0]["raised"]
-    assert set(raised) == {"fsdp", "tensor", "expert", "stage", "moe",
-                           "rules"}
-    assert "sharding slice" in raised["fsdp"]
+    res = ranks[0]
+    raised = res["raised"]
+    assert set(raised) == {"tensor", "expert", "stage", "moe"}
+    assert res["fsdp_wq_spec"] == (("stage", "fsdp", "tensor"), True)
+    assert "6b, tensor parallelism" in raised["tensor"]
     assert "sharding slice" in raised["tensor"]
     assert "pipeline slice" in raised["stage"]
     assert "expert-parallel" in raised["expert"]
     assert "expert-parallel" in raised["moe"]
-    assert "sharding slice" in raised["rules"]
+    assert res["rules"] == ([1.0, 1.0, 1.0], [0, 1])
 
 
 @pytest.mark.parametrize("axes,match", [
@@ -342,14 +513,23 @@ def test_later_axes_and_moe_raise_on_a_mesh(data2):
     ({"ep": 2}, "expert-parallel"), ({"stage": 1}, "pipeline")])
 def test_axes_dicts_for_later_slices_raise(axes, match):
     """One process: an axes dict naming a later slice's axis raises
-    NotImplementedError; a dict of more than one device is no
-    one-process mesh."""
-    with pytest.raises(NotImplementedError, match=match):
-        tts.ShardedTrainStep(ttf.TransformerConfig.tiny(), mesh=axes,
-                             device="cpu")
+    NotImplementedError.  fsdp is this slice's: {fsdp: 1} trains, and
+    {fsdp: 2}, like {data: 2}, is a dict of more than one device and so
+    no one-process mesh (ValueError)."""
+    cfg = ttf.TransformerConfig.tiny(dtype=torch.float32)
+    if "fsdp" in axes:
+        step = tts.ShardedTrainStep(cfg, mesh={"fsdp": 1}, device="cpu")
+        assert not step.sharded
+        state, m = step.step(step.init(0), {
+            "tokens": np.zeros((2, 9), dtype=np.int32)})
+        assert torch.isfinite(m["loss"]) and state["step"] == 1
+        with pytest.raises(ValueError, match="not divisible"):
+            tts.ShardedTrainStep(cfg, mesh=axes, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            tts.ShardedTrainStep(cfg, mesh=axes, device="cpu")
     with pytest.raises(ValueError):
-        tts.ShardedTrainStep(ttf.TransformerConfig.tiny(), mesh={"data": 2},
-                             device="cpu")
+        tts.ShardedTrainStep(cfg, mesh={"data": 2}, device="cpu")
 
 
 def test_ring_attention_true_without_a_mesh_raises():

@@ -531,9 +531,16 @@ def test_lm_logits_under_autograd_takes_a_differentiable_product(
 
 @pytest.mark.parametrize("mesh", [{"fsdp": 2}, {"stage": 1}])
 def test_sharded_meshes_raise_until_ported(mesh):
-    """fsdp and stage wait for their slices; data and seq ranks train
-    (tests/test_torch_sharded_train.py)."""
-    with pytest.raises(NotImplementedError):
+    """stage waits for its slice (NotImplementedError); fsdp is ported
+    (tests/test_torch_sharded_train.py trains it on gloo ranks), and in
+    one process {fsdp: 2} names two devices, which is no one-process
+    mesh (ValueError)."""
+    if "fsdp" in mesh:
+        with pytest.raises(ValueError, match="not divisible"):
+            tts.ShardedTrainStep(ttf.TransformerConfig.tiny(), mesh=mesh,
+                                 device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
         tts.ShardedTrainStep(ttf.TransformerConfig.tiny(), mesh=mesh,
                              device="cpu")
 
