@@ -78,8 +78,9 @@ Phases, each of which raises (exit code != 0) if it fails:
      factor 8.0 pipelined (with and without packed admission),
      speculative and handoff streams = classic;
   7. the flash backward kernels (dq, dk/dv) against their plain version,
-     in bf16 and fp32, at the training shape (b = 8, H = KVH = 14,
-     D = 128, s = 2048, causal; the forward there too), a GQA shape,
+     in bf16 and fp32, at the training shapes (b = 8, H = KVH = 14,
+     D = 128, s = 2048, causal, and one {tensor: 2} rank's 7 heads; the
+     forward there too), a GQA shape,
      sq < sk, a non-causal chunk and an offset chunk with fully masked
      rows and a nonzero lse cotangent (bf16 dq and dk/dv through both
      the Hopper and the older kernels); then the Hopper forward, dq and
@@ -130,9 +131,11 @@ Phases, each of which raises (exit code != 0) if it fails:
      start, weight-init and generation times and peak memory; a
      torch_trace of the idle actor, which must say it recorded no CUDA
      event, then one while it decodes, taken through the control plane's
-     profile op, that names the paged decode kernel;
+     profile op, that names the paged decode kernel (the actor's
+     engine and its profiler sessions share one thread);
      shutdown() leaving no worker and the card's used memory at the
-     driver's own;
+     driver's own.  `--phase runtime` runs the card, the build, [main]
+     and this phase alone;
  12. the serve plane on the port's runtime (`[serve]`, last): init and
      serve.start() (the HTTP proxy); [main]'s 12 requests at fp32 with 2
      layers at full width from a num_gpus=1 LLMServer replica, through
@@ -179,8 +182,14 @@ Phases, each of which raises (exit code != 0) if it fails:
      the save's seconds to return, to durable and to persisted, and the
      load time.  `--phase train` runs the card, the build, [train] (the
      reference) and this phase alone;
- 14. data and sequence parallelism on the port's runtime (`[seq]`,
-     last): with at least 60 GiB of the card free (gated), two
+ 14-16. The mesh phases' runs share one cluster: every one-rank run
+     one after another in one num_gpus=1 worker, every two-rank run in
+     one pair of num_gpus=0.5 workers (each process starts, joins its
+     process group and warms the card once), each worker gone and the
+     card's used memory back to the driver's own after; the phases then
+     check the runs' files.
+ 14. data and sequence parallelism on the port's runtime (`[seq]`):
+     with at least 60 GiB of the card free (gated), two
      num_gpus=0.5 TorchTrainer ranks (gloo; CUDA tensors staged
      through pinned host buffers, the transport printed) run ring
      attention over b = 1, S = 8,192, H = KVH = 14, D = 128 in bf16:
@@ -191,7 +200,7 @@ Phases, each of which raises (exit code != 0) if it fails:
      2 dk/dv: every ring step launched, the fully masked one too), the
      K/V bytes and seconds per ring step, ms per forward and backward;
      then bench.py's 0.9B-seq8k-b1 (full remat, fused CE, AdamW bf16
-     mu/nu) from the same seed, batch and optimizer, a warm-up and 3
+     mu/nu) from the same seed, batch and optimizer, a warm-up and 2
      steps on {seq: 1} in a num_gpus=1 worker and then on {seq: 2} in
      two num_gpus=0.5 ranks: every loss within 5e-4 relative of
      {seq: 1}'s, the step-1 gradient of each layer's wq, wk, wv and wo
@@ -214,7 +223,24 @@ Phases, each of which raises (exit code != 0) if it fails:
      embed dim (the norms whole), flash launches per rank per step
      32 / 16 / 16; printed: ms per step, the gathers', reduce-scatters'
      and all-reduces' bytes and seconds, each rank's peak memory.
-     `--phase fsdp` runs the card, the build and this phase alone.
+     `--phase fsdp` runs the card, the build and this phase alone;
+ 16. tensor parallelism on the port's runtime (`[tensor]`, after
+     [fsdp]): the same model, batch and recipe from seed 0 on
+     {tensor: 2} in two num_gpus=0.5 ranks (gloo-host), each running all
+     8 rows on 7 of the 14 heads, 3,584 MLP columns and 16,000
+     vocabulary rows, against [fsdp]'s {fsdp: 1} run (the same one-rank
+     step; `--phase tensor` runs {tensor: 1} itself): losses within
+     5e-4 relative, the step-1 gradient of each layer's wq, wk, wv and
+     wo within 5e-2 in norm, the grad norm within 5e-3, each leaf's
+     update within 1e-1 in norm, the gathered params bit-equal across
+     ranks (digest), each rank's bytes of params, mu and nu half of the
+     one rank's for every leaf with a heads, mlp or vocab dim (the norms
+     whole), flash launches per rank per step 32 / 16 / 16 (the Hopper
+     kernels on 7-head blocks), the calls and bytes of the model's
+     all-reduces over `tensor` per rank per step as counted from the
+     shapes; printed: ms per step, the collectives' bytes and seconds
+     by kind, each rank's peak memory.  `--phase tensor` runs the card,
+     the build and this phase alone.
 
 The last lines: a JSON object of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -222,12 +248,14 @@ limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import subprocess
@@ -1948,9 +1976,11 @@ def phase_moe_fp32(dev):
 # ---------------------------------------------------------------------------
 
 # (name, b, sq, sk, H, KVH, q_off, kv_off, causal), D = 128.  "train" is
-# the training path's shape, batch included.
+# the training path's shape, batch included; "train_tp" one {tensor: 2}
+# rank's ([tensor]: 7 of the 14 heads).
 BWD_CASES = [
     ("train", 8, 2048, 2048, 14, 14, 0, 0, True),
+    ("train_tp", 8, 2048, 2048, 7, 7, 0, 0, True),
     ("gqa", 2, 512, 512, 16, 4, 0, 0, True),
     ("end_aligned", 1, 256, 640, 14, 14, 384, 0, True),
     ("noncausal", 1, 200, 300, 14, 14, 0, 0, False),
@@ -1984,8 +2014,9 @@ def check_bwd(kname, tag, got, want, dtype=torch.bfloat16):
 def phase_kernels_bwd(dev):
     """dq and dk/dv against flash_attention_chunk_bwd_plain on the same
     (out, lse) and cotangents (do and a nonzero dlse), and at the training
-    shape the forward's (out, lse) against its plain version too; returns
-    the largest bf16 error of each kernel at the training shape."""
+    shapes the forward's (out, lse) against its plain version too;
+    returns the largest bf16 error of each kernel at the training
+    shapes."""
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = {k: 0.0 for k in ("flash_bwd_dq", "flash_bwd_dkv",
                               "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
@@ -2006,7 +2037,8 @@ def phase_kernels_bwd(dev):
             torch.cuda.synchronize()
             tag = f"{name} {str(dtype)[6:]} b={b} sq={sq} sk={sk} H={H} " \
                   f"KVH={KVH} q_off={q_off} kv_off={kv_off} causal={causal}"
-            if name == "train":
+            train = name in ("train", "train_tp")
+            if train:
                 for sm90 in ([True, False] if dtype == torch.bfloat16
                              else [False]):
                     kname = "flash_fwd_sm90" if sm90 else "flash_fwd"
@@ -2046,13 +2078,17 @@ def phase_kernels_bwd(dev):
                 print(f"[kernel] flash_bwd_dq, flash_bwd_dkv (older kernels) "
                       f"{tag}: max_abs_err dq {old_errs[0]:.3e} dk "
                       f"{old_errs[1]:.3e} dv {old_errs[2]:.3e}")
-                if name == "train":
-                    worst["flash_bwd_dq"] = old_errs[0]
-                    worst["flash_bwd_dkv"] = max(old_errs[1:])
+                if train:
+                    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"],
+                                                old_errs[0])
+                    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
+                                                 *old_errs[1:])
                 del old, corr
-            if name == "train" and dtype == torch.bfloat16:
-                worst["flash_bwd_dq_sm90"] = errs[0]
-                worst["flash_bwd_dkv_sm90"] = max(errs[1:])
+            if train and dtype == torch.bfloat16:
+                worst["flash_bwd_dq_sm90"] = max(worst["flash_bwd_dq_sm90"],
+                                                 errs[0])
+                worst["flash_bwd_dkv_sm90"] = max(
+                    worst["flash_bwd_dkv_sm90"], *errs[1:])
             del q, k, v, do, out, lse, got, want
     torch.cuda.empty_cache()
     return worst
@@ -2632,13 +2668,46 @@ class EngineServer:
         torch.cuda.synchronize()
         self.init_s = time.perf_counter() - t0
         self.eng = LLMEngine(cfg, params, device="cuda", **engine_kw)
-        # Every decode graph now: a capture synchronizes the card, and so
-        # does a profiler's stop, from another thread (see generate).
+        # Every decode graph now: a capture synchronizes the card.
         t0 = time.perf_counter()
         self.captured = self.eng.graphs.capture_all()
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
         self.steps = 0
+        # The engine runs on a thread of its own, and the runtime's
+        # torch_trace starts and stops its sessions there too, between
+        # two steps: a session taken from another thread while this one
+        # replays graphs can hang (core/runtime.py set_profile_runner).
+        self._calls = queue.Queue()
+        threading.Thread(target=self._engine_loop, daemon=True,
+                         name="engine").start()
+        from ray_tpu_torch.core import runtime
+
+        runtime.set_profile_runner(self._on_engine)
+
+    def _on_engine(self, fn):
+        """Run fn() on the engine thread and return its result here."""
+        fut = concurrent.futures.Future()
+        self._calls.put((fn, fut))
+        return fut.result()
+
+    def _run_calls(self, block):
+        """On the engine thread: run the calls handed to it (waits for
+        one when block)."""
+        while True:
+            try:
+                fn, fut = self._calls.get(block=block)
+            except queue.Empty:
+                return
+            block = False
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 (to the caller)
+                fut.set_exception(e)
+
+    def _engine_loop(self):
+        while True:
+            self._run_calls(block=True)
 
     def info(self):
         return dict(init_s=self.init_s, capture_s=self.capture_s,
@@ -2651,6 +2720,9 @@ class EngineServer:
         return self.steps
 
     def generate(self, prompts, max_new):
+        return self._on_engine(lambda: self._generate(prompts, max_new))
+
+    def _generate(self, prompts, max_new):
         kernels = {"paged_decode_attention": tpa.PAGED_DECODE,
                    "rope_row_write": tpa.ROPE_ROW_WRITE,
                    "row_write": tpa.ROW_WRITE,
@@ -2666,6 +2738,7 @@ class EngineServer:
         while self.eng.has_work():
             done.update(self.eng.step())
             self.steps += 1
+            self._run_calls(block=False)
         torch.cuda.synchronize()
         return dict(streams=[done.get(rid) for rid in ids],
                     gen_s=time.perf_counter() - t0, steps=self.steps,
@@ -3743,7 +3816,7 @@ SEQ_RING_MAX = 5e-2
 # the mesh) is held too: ||g2 - g1|| / ||g1|| within SEQ_GRAD_L2 for
 # each layer and weight (bf16 rounding through 16 layers, ~5e-3
 # expected; a dropped or misplaced chunk moves them by tens of percent).
-SEQ_TRAIN = dict(steps=3, batch=1, seq=8192)
+SEQ_TRAIN = dict(steps=2, batch=1, seq=8192)
 SEQ_LOSS_RTOL = 5e-4
 SEQ_GRAD_L2 = 5e-2
 SEQ_GRAD_LEAVES = ("wq", "wk", "wv", "wo")
@@ -3897,6 +3970,74 @@ def seq_fit(loop, name, workers, store, **config):
             num_workers=workers, use_gpu=True,
             gpus_per_worker=1.0 / workers),
         run_config=ttrain.RunConfig(storage_path=store, name=name)).fit()
+
+
+def chain_loop(config):
+    """The runs config["runs"] ((loop, name, axes), in order) in this
+    worker, each freeing what it made before the next; rank 0's host
+    seconds per run saved for the driver."""
+    import torch.distributed as dist
+
+    secs = {}
+    for loop, name, axes in config["runs"]:
+        t0 = time.perf_counter()
+        loop(dict(dir=config["dir"], name=name, axes=axes))
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = round(time.perf_counter() - t0, 1)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        with open(os.path.join(config["dir"], f"{config['name']}.json"),
+                  "w") as f:
+            json.dump(secs, f)
+
+
+def fit_mesh_runs(tag, store, runs):
+    """The mesh phases' runs ((loop, name, ranks, axes)) on one cluster
+    (TorchTrainer, gloo): the one-rank runs one after another in one
+    num_gpus=1 worker, then the two-rank runs in one pair of
+    num_gpus=0.5 workers (chain_loop), so that each process starts,
+    joins its process group and warms the card once; each run leaves its
+    files in `store`.  Then every worker must be gone and the card's used
+    memory back to the driver's own."""
+    t_fits = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    used0 = device_used_bytes()
+    worker_pids = set()
+    drv = rtt.init(num_cpus=4, log_to_driver=True)
+    try:
+        for n in sorted({r[2] for r in runs}):
+            chain = [(loop, name, axes) for loop, name, k, axes in runs
+                     if k == n]
+            wait_free(SEQ_FREE if n > 1 else SEQ_FREE // 2, tag)
+            t0 = time.perf_counter()
+            seq_fit(chain_loop, f"chain{n}", n, store, runs=chain)
+            with open(os.path.join(store, f"chain{n}.json")) as f:
+                secs = json.load(f)
+            print(f"{tag} fit of {n} rank(s), one worker start for its "
+                  f"runs: {time.perf_counter() - t0:.1f} s; rank 0's host "
+                  f"seconds per run {json.dumps(secs)}")
+        for w in drv.control.workers.values():
+            if w.pid and w.kind != "driver":
+                worker_pids.add(w.pid)
+    finally:
+        rtt.shutdown()
+    deadline = time.time() + 30
+    left = worker_pids
+    while True:
+        left = {p for p in left if process_alive(p)}
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    used1 = device_used_bytes()
+    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
+          f"used {used0 / 2**30:.2f} GiB before, {used1 / 2**30:.2f} GiB "
+          f"after; the fits {time.perf_counter() - t_fits:.1f} s")
+    check(used1 <= used0 + USED_SLACK,
+          f"{tag} the card's used memory did not return to the driver's own")
 
 
 def wait_free(need, tag, timeout=60.0):
@@ -4068,83 +4209,58 @@ def check_seq_grads(tag, store, runs):
           f"{tag} the two ranks' gradient norms differ")
 
 
-def phase_seq(smi):
+# [seq]'s runs for fit_mesh_runs: (loop, name, ranks, axes).
+SEQ_RUNS = [(seq_ring_loop, "ring", SEQ_RING["ranks"], None),
+            (seq_train_loop, "seq1", 1, {"seq": 1}),
+            (seq_train_loop, "seq2", 2, {"seq": 2})]
+
+
+def phase_seq(smi, store=None):
     """Ring attention and the 0.9B model at 8k context on seq meshes of
-    TorchTrainer ranks on the one card (gloo, two num_gpus=0.5 workers)."""
+    TorchTrainer ranks on the one card (gloo, two num_gpus=0.5 workers):
+    the checks of SEQ_RUNS' files in `store`, fitted there by
+    fit_mesh_runs (here, when no store is given)."""
     tag = "[seq]"
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    used0 = device_used_bytes()
-    wait_free(SEQ_FREE, tag)
-    store = tempfile.mkdtemp(prefix="seq_")
-    worker_pids = set()
-    try:
-        drv = rtt.init(num_cpus=4, log_to_driver=True)
+    if store is None:
+        store = tempfile.mkdtemp(prefix="seq_")
         try:
-            t0 = time.perf_counter()
-            seq_fit(seq_ring_loop, "ring", SEQ_RING["ranks"], store)
-            print(f"{tag} ring op fit {time.perf_counter() - t0:.1f} s")
-            check_seq_ring(tag, store, smi)
-            cfg = tbench._long_context_ladder(ttf)[1][1]
-            check(tbench._long_context_ladder(ttf)[1][0] == "0.9B-seq8k-b1"
-                  and cfg.max_seq_len == SEQ_TRAIN["seq"],
-                  f"{tag} the bench's 0.9B-seq8k-b1 row changed")
-            print(f"{tag} 0.9B-seq8k-b1: {num_params(cfg):,} params, "
-                  f"{cfg.num_layers} layers, {cfg.num_heads} heads of "
-                  f"{cfg.head_dim_}, max_seq_len {cfg.max_seq_len}, remat "
-                  f"{cfg.remat_policy}, fused_ce {cfg.fused_ce}, AdamW bf16 "
-                  f"mu/nu; b={SEQ_TRAIN['batch']}, S={SEQ_TRAIN['seq']}")
-            runs = {}
-            for name, n in (("seq1", 1), ("seq2", 2)):
-                wait_free(SEQ_FREE if n > 1 else SEQ_FREE // 2, tag)
-                t0 = time.perf_counter()
-                seq_fit(seq_train_loop, name, n, store,
-                        axes={"seq": n})
-                print(f"{tag} {name} fit {time.perf_counter() - t0:.1f} s")
-                runs[name] = report_seq_train(tag, store, name, n, smi)
-            one, two = runs["seq1"][0]["losses"], runs["seq2"][0]["losses"]
-            rel = [abs(a - b) / abs(a) for a, b in zip(one, two)]
-            print(f"{tag} losses {{seq: 2}} against {{seq: 1}}, relative: "
-                  f"{[f'{x:.2e}' for x in rel]} (tolerance {SEQ_LOSS_RTOL})")
-            check(max(rel) <= SEQ_LOSS_RTOL,
-                  f"{tag} the two-rank losses differ from one rank's")
-            check_seq_grads(tag, store, runs)
-            ms1 = sum(runs["seq1"][0]["ms"]) / SEQ_TRAIN["steps"]
-            ms2 = [sum(r["ms"]) / SEQ_TRAIN["steps"] for r in runs["seq2"]]
-            print(f"{tag} on {smi}: ms per step {{seq: 1}} {ms1:.1f}, "
-                  f"{{seq: 2}} {[round(x, 1) for x in ms2]} (both ranks share "
-                  f"the card); peak memory per rank "
-                  f"{[round(r['peak'] / 2**30, 2) for r in runs['seq1']]} / "
-                  f"{[round(r['peak'] / 2**30, 2) for r in runs['seq2']]} "
-                  f"GiB; params bit-equal across ranks (digest)")
-            print(f"{tag} TorchConfig(backend='nccl') is not run: NCCL "
-                  "refuses two ranks on one card; the nccl transport "
-                  "(CUDA tensors, no staging) waits for a machine with two "
-                  "cards")
-            for w in drv.control.workers.values():
-                if w.pid and w.kind != "driver":
-                    worker_pids.add(w.pid)
+            fit_mesh_runs(tag, store, SEQ_RUNS)
+            return phase_seq(smi, store)
         finally:
-            rtt.shutdown()
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
-    deadline = time.time() + 30
-    left = worker_pids
-    while True:
-        left = {p for p in left if process_alive(p)}
-        if not left or time.time() > deadline:
-            break
-        time.sleep(0.2)
-    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    used1 = device_used_bytes()
-    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
-          f"used {used0 / 2**30:.2f} GiB before, {used1 / 2**30:.2f} GiB "
-          f"after; the phase {time.perf_counter() - t_phase:.1f} s")
-    check(used1 <= used0 + USED_SLACK,
-          f"{tag} the card's used memory did not return to the driver's own")
+            shutil.rmtree(store, ignore_errors=True)
+    t_phase = time.perf_counter()
+    check_seq_ring(tag, store, smi)
+    cfg = tbench._long_context_ladder(ttf)[1][1]
+    check(tbench._long_context_ladder(ttf)[1][0] == "0.9B-seq8k-b1"
+          and cfg.max_seq_len == SEQ_TRAIN["seq"],
+          f"{tag} the bench's 0.9B-seq8k-b1 row changed")
+    print(f"{tag} 0.9B-seq8k-b1: {num_params(cfg):,} params, "
+          f"{cfg.num_layers} layers, {cfg.num_heads} heads of "
+          f"{cfg.head_dim_}, max_seq_len {cfg.max_seq_len}, remat "
+          f"{cfg.remat_policy}, fused_ce {cfg.fused_ce}, AdamW bf16 "
+          f"mu/nu; b={SEQ_TRAIN['batch']}, S={SEQ_TRAIN['seq']}")
+    runs = {name: report_seq_train(tag, store, name, n, smi)
+            for name, n in (("seq1", 1), ("seq2", 2))}
+    one, two = runs["seq1"][0]["losses"], runs["seq2"][0]["losses"]
+    rel = [abs(a - b) / abs(a) for a, b in zip(one, two)]
+    print(f"{tag} losses {{seq: 2}} against {{seq: 1}}, relative: "
+          f"{[f'{x:.2e}' for x in rel]} (tolerance {SEQ_LOSS_RTOL})")
+    check(max(rel) <= SEQ_LOSS_RTOL,
+          f"{tag} the two-rank losses differ from one rank's")
+    check_seq_grads(tag, store, runs)
+    ms1 = sum(runs["seq1"][0]["ms"]) / SEQ_TRAIN["steps"]
+    ms2 = [sum(r["ms"]) / SEQ_TRAIN["steps"] for r in runs["seq2"]]
+    print(f"{tag} on {smi}: ms per step {{seq: 1}} {ms1:.1f}, "
+          f"{{seq: 2}} {[round(x, 1) for x in ms2]} (both ranks share "
+          f"the card); peak memory per rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in runs['seq1']]} / "
+          f"{[round(r['peak'] / 2**30, 2) for r in runs['seq2']]} "
+          f"GiB; params bit-equal across ranks (digest)")
+    print(f"{tag} TorchConfig(backend='nccl') is not run: NCCL "
+          "refuses two ranks on one card; the nccl transport "
+          "(CUDA tensors, no staging) waits for a machine with two "
+          "cards")
+    print(f"{tag} checks {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4174,13 +4290,61 @@ FSDP_GRAD_L2 = 1e-2
 FSDP_NORM_RTOL = 1e-3
 FSDP_UPDATE_L2 = 5e-2
 
+# [tensor]: the same model, batch and recipe with heads, mlp and vocab
+# split over {tensor: 2} (two num_gpus=0.5 ranks, each running all 8
+# rows on 7 of the 14 heads, 3,584 of the 7,168 MLP columns and 16,000
+# of the 32,000 vocabulary rows), against the one-rank run ([fsdp]'s
+# {fsdp: 1} in the full script; {tensor: 1} with --phase tensor).  Both
+# runs see the same rows; they differ where the row-parallel products
+# (wo, w_down) and the LM head's dx are summed as two bf16 partial sums
+# (one bf16 rounding each) where one rank rounds the whole sum once, and
+# in the order of the cross-entropy's sums.  Gates, set before the first
+# reading from that: losses within TENSOR_LOSS_RTOL, step-1 gradients
+# of wq, wk, wv and wo within TENSOR_GRAD_L2 in norm (a missing share of
+# an activation's gradient is ~50 %), the grad norm within
+# TENSOR_NORM_RTOL (a loss pair summed over tensor halves it), each
+# leaf's update within TENSOR_UPDATE_L2; each rank's bytes half of the
+# one rank's for every leaf with a heads, mlp or vocab dim; the bytes
+# and calls of the model's all-reduces over `tensor` per rank per step
+# as tensor_comm_expected counts them.
+TENSOR_LOSS_RTOL = 5e-4
+TENSOR_GRAD_L2 = 5e-2
+TENSOR_NORM_RTOL = 5e-3
+TENSOR_UPDATE_L2 = 1e-1
+# Per kind of run: its gates and the logical dims its axis splits.
+SPLIT_RUNS = {
+    "fsdp": dict(loss=FSDP_LOSS_RTOL, grad=FSDP_GRAD_L2,
+                 norm=FSDP_NORM_RTOL, update=FSDP_UPDATE_L2,
+                 dims=("embed",), what="embed dim"),
+    "tensor": dict(loss=TENSOR_LOSS_RTOL, grad=TENSOR_GRAD_L2,
+                   norm=TENSOR_NORM_RTOL, update=TENSOR_UPDATE_L2,
+                   dims=("heads", "mlp", "vocab"),
+                   what="heads, mlp or vocab dim"),
+}
 
-def fsdp_split(cfg, name):
-    """Whether param leaf `name` ("blocks/wq", ...) has an embed dim."""
+
+def fsdp_split(cfg, name, dims=("embed",)):
+    """Whether param leaf `name` ("blocks/wq", ...) has a dim of one of
+    the logical `dims` (an embed dim by default)."""
     axes = ttf.logical_axes(cfg)
     for k in name.split("/"):
         axes = axes[k]
-    return "embed" in axes
+    return any(d in axes for d in dims)
+
+
+def tensor_comm_expected(cfg, batch, seq):
+    """(calls, bytes) of the model's collectives over `tensor` per rank
+    per step, bf16 activations: per layer the two all-reduces of the
+    forward (after wo and w_down), the first again in the checkpoint's
+    re-run (which stops after the layer's last saved tensor, before the
+    MLP's all-reduce), and the two of the backward (the gradients
+    entering q/k/v and gate/up); the embedding's rows and the LM head's
+    dx; the fused cross-entropy's max and (sum of exponentials, target
+    logit) per token in fp32."""
+    tokens = batch * seq
+    act = tokens * cfg.hidden_size * 2
+    n = 5 * cfg.num_layers + 2
+    return n + 2, n * act + tokens * 4 * 3
 
 
 def fsdp_flat(tree, prefix=""):
@@ -4193,17 +4357,27 @@ def fsdp_flat(tree, prefix=""):
     return out
 
 
-def fsdp_train_loop(config):
+def split_train_loop(config):
     """The 0.9B model on the mesh config["axes"] (every rank passes the
-    same global batch): init(0); the step-1 gradients of the attention
-    weights, gathered; the warm-up step, then the timed steps with the
-    flash kernels' launches and the step's collectives read around
-    them; each rank's bytes of params, mu and nu per leaf; on rank 0 the
-    gathered update over the run (final - initial params), saved."""
+    same global batch; fsdp or tensor ranks): init(0); the step-1
+    gradients of the attention weights, gathered; the warm-up step, then
+    the timed steps with the flash kernels' launches and the step's
+    collectives read around them (the model's tensor collectives'
+    calls from the mesh's count); each rank's bytes of params, mu and
+    nu per leaf; on rank 0 the gathered update over the run (final -
+    initial params), saved.  `stages` holds the host seconds from the
+    loop's start to the end of each stage."""
     import torch.distributed as dist
 
     from ray_tpu_torch.train.torch_backend import get_device
     from ray_tpu_torch.train.train_loop_utils import get_mesh
+
+    t_loop = time.perf_counter()
+    stages = {}
+
+    def stage(name):
+        torch.cuda.synchronize()
+        stages[name] = round(time.perf_counter() - t_loop, 2)
 
     dev = get_device()
     mesh = get_mesh(config["axes"])
@@ -4215,6 +4389,7 @@ def fsdp_train_loop(config):
     start = fsdp_flat(ts.gather(state["params"]))
     start = {k: v.float().cpu() for k, v in start.items()} if rank == 0 \
         else None
+    stage("init")
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (FSDP_TRAIN["batch"], FSDP_TRAIN["seq"] + 1))
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
@@ -4225,7 +4400,7 @@ def fsdp_train_loop(config):
         torch.save({k: g.float().cpu() for k, g in attn.items()},
                    os.path.join(config["dir"], f"grads_{config['name']}.pt"))
     del grads, attn
-    torch.cuda.synchronize()
+    stage("grads")
     t0 = time.perf_counter()
     state, m = ts.step(state, batch)
     losses = [float(m["loss"])]
@@ -4237,6 +4412,7 @@ def fsdp_train_loop(config):
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
     ms, comm = [], []
+    calls0 = mesh.tensor_comm["calls"]
     for _ in range(FSDP_TRAIN["steps"]):
         if dist.is_initialized():
             dist.barrier()
@@ -4247,6 +4423,8 @@ def fsdp_train_loop(config):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         comm.append(json.loads(json.dumps(ts.last_comm)))
+    tensor_calls = (mesh.tensor_comm["calls"] - calls0) / FSDP_TRAIN["steps"]
+    stage("steps")
     peak = torch.cuda.max_memory_allocated()
     adam = state["opt_state"][1][0]
     mu, nu = fsdp_flat(adam.mu), fsdp_flat(adam.nu)
@@ -4260,20 +4438,23 @@ def fsdp_train_loop(config):
                    os.path.join(config["dir"],
                                 f"update_{config['name']}.pt"))
     del whole, start
+    stage("end")
+    axis = next(iter(config["axes"]))
     out = dict(
         rank=rank, device=str(dev), mesh=dict(mesh.shape), losses=losses,
         grad_norm=grad_norm, warm_ms=warm_ms, ms=ms, comm=comm,
+        tensor_calls=tensor_calls, stages=stages,
         launches={n: kern.launches for n, kern in flash.items()},
         peak=peak, held=held, digest=digest,
-        transport=(tcomm.transport(mesh.get_group("fsdp"), dev)
-                   if mesh.get_group("fsdp") is not None else "none"),
+        transport=(tcomm.transport(mesh.get_group(axis), dev)
+                   if mesh.axis_size(axis) > 1 else "none"),
         layers=cfg.num_layers, config=name, batch=B, seq=S)
     with open(os.path.join(config["dir"],
                            f"train_{config['name']}_{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def report_fsdp_train(tag, store, name, n, smi):
+def report_split_train(tag, store, name, n, smi):
     ranks = []
     for r in range(n):
         with open(os.path.join(store, f"train_{name}_{r}.json")) as f:
@@ -4294,10 +4475,16 @@ def report_fsdp_train(tag, store, name, n, smi):
               f"{[round(c['reduce_scatter']['seconds'] * 1e3, 1) for c in res['comm']]}"
               f" ms, all-reduce {last['all_reduce']['bytes']:,} B in "
               f"{[round(c['all_reduce']['seconds'] * 1e3, 1) for c in res['comm']]}"
+              f" ms, tensor {res['tensor_calls']:g} calls, "
+              f"{last['tensor']['bytes']:,} B in "
+              f"{[round(c['tensor']['seconds'] * 1e3, 1) for c in res['comm']]}"
               f" ms; peak memory {res['peak'] / 2**30:.2f} GiB; on {smi}")
         per_step = {k: v / steps for k, v in res["launches"].items()}
         print(f"{tag} {name} rank {res['rank']} flash launches per step "
-              f"{json.dumps(per_step)}")
+              f"{json.dumps(per_step)}; host seconds from the loop's start "
+              f"to the end of init (with the start gather), the step-1 "
+              f"gradients, the steps, the end gather and save "
+              f"{json.dumps(res['stages'])}")
         check(res["launches"] == seq_expected(1, L, steps, 2),
               f"{tag} {name} rank {res['rank']}: flash launches differ from "
               f"{seq_expected(1, L, steps, 2)}")
@@ -4309,19 +4496,24 @@ def report_fsdp_train(tag, store, name, n, smi):
     return ranks
 
 
-def check_fsdp(tag, store, runs, smi):
-    one, two = runs["fsdp1"], runs["fsdp2"]
+def check_split(tag, store, runs, smi, kind, names):
+    """The two-rank run `names[1]` of `kind` ("fsdp" or "tensor": its
+    gates and split dims, SPLIT_RUNS) against the one-rank run
+    `names[0]`."""
+    gates = SPLIT_RUNS[kind]
+    one, two = runs[names[0]], runs[names[1]]
+    m1, m2 = f"{{{kind}: 1}}", f"{{{kind}: 2}}"
     cfg = tbench._config_ladder(ttf)[0][1]
     # Losses.
     rel = [abs(a - b) / abs(a) for a, b in zip(one[0]["losses"],
                                                two[0]["losses"])]
-    print(f"{tag} losses {{fsdp: 2}} against {{fsdp: 1}}, relative: "
-          f"{[f'{x:.2e}' for x in rel]} (tolerance {FSDP_LOSS_RTOL})")
-    check(max(rel) <= FSDP_LOSS_RTOL,
+    print(f"{tag} losses {m2} against {m1}, relative: "
+          f"{[f'{x:.2e}' for x in rel]} (tolerance {gates['loss']})")
+    check(max(rel) <= gates["loss"],
           f"{tag} the two-rank losses differ from one rank's")
     # Step-1 gradients of the attention weights, layer by layer.
     g1, g2 = (torch.load(os.path.join(store, f"grads_{n}.pt"),
-                         weights_only=True) for n in ("fsdp1", "fsdp2"))
+                         weights_only=True) for n in names)
     grel = {}
     for k in SEQ_GRAD_LEAVES:
         for layer, (a, b) in enumerate(zip(g1[k], g2[k])):
@@ -4329,30 +4521,30 @@ def check_fsdp(tag, store, runs, smi):
     worst = max(grel, key=grel.get)
     norms = [r["grad_norm"] for r in one + two]
     nrel = max(abs(x - norms[0]) / norms[0] for x in norms[1:])
-    print(f"{tag} step-1 gradients {{fsdp: 2}} against {{fsdp: 1}}, "
+    print(f"{tag} step-1 gradients {m2} against {m1}, "
           f"||g2 - g1|| / ||g1|| per layer: "
           + ", ".join(
               f"{k} {min(v for (n, _), v in grel.items() if n == k):.2e}-"
               f"{max(v for (n, _), v in grel.items() if n == k):.2e}"
               for k in SEQ_GRAD_LEAVES)
           + f"; largest {grel[worst]:.3e} ({worst[0]}, layer {worst[1]}; "
-          f"tolerance {FSDP_GRAD_L2}); global grad norm {{fsdp: 1}} "
-          f"{norms[0]:.6f}, {{fsdp: 2}} {norms[1:]} (relative {nrel:.2e}, "
-          f"tolerance {FSDP_NORM_RTOL})")
-    check(grel[worst] <= FSDP_GRAD_L2,
+          f"tolerance {gates['grad']}); global grad norm {m1} "
+          f"{norms[0]:.6f}, {m2} {norms[1:]} (relative {nrel:.2e}, "
+          f"tolerance {gates['norm']})")
+    check(grel[worst] <= gates["grad"],
           f"{tag} the two-rank step-1 gradients differ from one rank's")
-    check(nrel <= FSDP_NORM_RTOL,
+    check(nrel <= gates["norm"],
           f"{tag} the two-rank grad norm differs from one rank's")
     # The update over the run, leaf by leaf.
     u1, u2 = (torch.load(os.path.join(store, f"update_{n}.pt"),
-                         weights_only=True) for n in ("fsdp1", "fsdp2"))
+                         weights_only=True) for n in names)
     urel = {k: ((u2[k] - u1[k]).norm() / u1[k].norm()).item() for k in u1}
     uworst = max(urel, key=urel.get)
     print(f"{tag} params' update over the {FSDP_TRAIN['steps'] + 1} steps "
           f"(gathered), ||u2 - u1|| / ||u1|| per leaf: "
           + ", ".join(f"{k} {v:.2e}" for k, v in sorted(urel.items()))
-          + f" (tolerance {FSDP_UPDATE_L2})")
-    check(urel[uworst] <= FSDP_UPDATE_L2,
+          + f" (tolerance {gates['update']})")
+    check(urel[uworst] <= gates["update"],
           f"{tag} the two-rank update of {uworst} differs from one rank's")
     del g1, g2, u1, u2
     # Each rank's bytes, counted from its tensors.
@@ -4361,17 +4553,18 @@ def check_fsdp(tag, store, runs, smi):
     for res in two:
         for k, (p, m, v) in res["held"].items():
             w = whole[k]
-            want = [x // 2 for x in w] if fsdp_split(cfg, k) else w
+            want = [x // 2 for x in w] if fsdp_split(cfg, k, gates["dims"]) \
+                else w
             check([p, m, v] == want, f"{tag} rank {res['rank']} holds "
                   f"{[p, m, v]} B of {k} (params, mu, nu); want {want}")
         tot = [sum(x[i] for x in res["held"].values()) for i in range(3)]
         print(f"{tag} rank {res['rank']} holds params {tot[0]:,} B, mu "
-              f"{tot[1]:,} B, nu {tot[2]:,} B against {{fsdp: 1}}'s "
+              f"{tot[1]:,} B, nu {tot[2]:,} B against {m1}'s "
               f"{tot1[0]:,} / {tot1[1]:,} / {tot1[2]:,} B (each leaf with "
-              f"an embed dim half, the norms whole)")
+              f"a {gates['what']} half, the norms whole)")
     ms1 = sum(one[0]["ms"]) / FSDP_TRAIN["steps"]
     ms2 = [sum(r["ms"]) / FSDP_TRAIN["steps"] for r in two]
-    print(f"{tag} on {smi}: ms per step {{fsdp: 1}} {ms1:.1f}, {{fsdp: 2}} "
+    print(f"{tag} on {smi}: ms per step {m1} {ms1:.1f}, {m2} "
           f"{[round(x, 1) for x in ms2]} (both ranks share the card; "
           f"host clock); peak memory per rank "
           f"{[round(r['peak'] / 2**30, 2) for r in one]} / "
@@ -4379,62 +4572,71 @@ def check_fsdp(tag, store, runs, smi):
           f"params bit-equal across ranks (digest)")
 
 
-def phase_fsdp(smi):
-    """The 0.9B model with params and Adam moments split over an fsdp
-    mesh of TorchTrainer ranks on the one card (gloo, two num_gpus=0.5
-    workers), against one num_gpus=1 worker."""
-    tag = "[fsdp]"
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    used0 = device_used_bytes()
-    store = tempfile.mkdtemp(prefix="fsdp_")
-    worker_pids = set()
-    try:
-        drv = rtt.init(num_cpus=4, log_to_driver=True)
+def check_tensor_comm(tag, ranks, cfg):
+    """Each {tensor: 2} rank's calls and bytes of the model's collectives
+    over `tensor` per step, against tensor_comm_expected."""
+    calls, nbytes = tensor_comm_expected(cfg, FSDP_TRAIN["batch"],
+                                         FSDP_TRAIN["seq"])
+    for res in ranks:
+        got = [c["tensor"]["bytes"] for c in res["comm"]]
+        secs = [c["tensor"]["seconds"] for c in res["comm"]]
+        print(f"{tag} rank {res['rank']} tensor collectives per step: "
+              f"{res['tensor_calls']:g} calls, {got} B in "
+              f"{[round(x, 3) for x in secs]} s (expected {calls} calls, "
+              f"{nbytes:,} B: per layer 2 forward, 1 re-run, 2 backward "
+              f"activation all-reduces of "
+              f"{FSDP_TRAIN['batch'] * FSDP_TRAIN['seq'] * cfg.hidden_size * 2:,}"
+              f" B, the embedding's and the LM head's dx, the CE's 2)")
+        check(res["tensor_calls"] == calls and set(got) == {nbytes},
+              f"{tag} rank {res['rank']}: the tensor collectives differ "
+              "from the count")
+
+
+def split_runs(kind, one=True):
+    """[fsdp]'s or [tensor]'s runs for fit_mesh_runs: {kind: 2}, and
+    first {kind: 1} when `one`."""
+    return [(split_train_loop, f"{kind}{n}", n, {kind: n})
+            for n in ((1, 2) if one else (2,))]
+
+
+def phase_split(smi, kind, store=None, ref=None):
+    """The 0.9B model split over a mesh of TorchTrainer ranks on the one
+    card (gloo, two num_gpus=0.5 workers), against one num_gpus=1
+    worker: `kind` "fsdp" ([fsdp]: params and Adam moments split over
+    fsdp) or "tensor" ([tensor]: heads, mlp and vocab over tensor).  The
+    checks of the runs' files in `store`, fitted there by fit_mesh_runs
+    (here, when no store is given); `ref` names the one-rank run to hold
+    the two-rank run against ({kind: 1} by default)."""
+    tag = f"[{kind}]"
+    if store is None:
+        store = tempfile.mkdtemp(prefix=f"{kind}_")
         try:
-            name, cfg, B, S = tbench._config_ladder(ttf)[0]
-            check(name == "0.9B" and (B, S) == (FSDP_TRAIN["batch"],
-                                                FSDP_TRAIN["seq"]),
-                  f"{tag} the bench's 0.9B row changed")
-            print(f"{tag} {name}: {num_params(cfg):,} params, "
-                  f"{cfg.num_layers} layers, {cfg.num_heads} heads of "
-                  f"{cfg.head_dim_}, remat {cfg.remat_policy}, fused_ce "
-                  f"{cfg.fused_ce}, AdamW bf16 mu/nu; b={B}, s={S}")
-            runs = {}
-            for run, n in (("fsdp1", 1), ("fsdp2", 2)):
-                wait_free(SEQ_FREE if n > 1 else SEQ_FREE // 2, tag)
-                t0 = time.perf_counter()
-                seq_fit(fsdp_train_loop, run, n, store, axes={"fsdp": n})
-                print(f"{tag} {run} fit {time.perf_counter() - t0:.1f} s")
-                runs[run] = report_fsdp_train(tag, store, run, n, smi)
-            check(all(r["transport"] == "gloo-host" for r in runs["fsdp2"]),
-                  f"{tag} the fsdp collectives did not stage through host "
-                  "buffers")
-            check_fsdp(tag, store, runs, smi)
-            for w in drv.control.workers.values():
-                if w.pid and w.kind != "driver":
-                    worker_pids.add(w.pid)
+            fit_mesh_runs(tag, store, split_runs(kind))
+            return phase_split(smi, kind, store)
         finally:
-            rtt.shutdown()
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
-    deadline = time.time() + 30
-    left = worker_pids
-    while True:
-        left = {p for p in left if process_alive(p)}
-        if not left or time.time() > deadline:
-            break
-        time.sleep(0.2)
-    check(not left, f"{tag} workers left after shutdown: {sorted(left)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    used1 = device_used_bytes()
-    print(f"{tag} {len(worker_pids)} worker processes gone; card memory "
-          f"used {used0 / 2**30:.2f} GiB before, {used1 / 2**30:.2f} GiB "
-          f"after; the phase {time.perf_counter() - t_phase:.1f} s")
-    check(used1 <= used0 + USED_SLACK,
-          f"{tag} the card's used memory did not return to the driver's own")
+            shutil.rmtree(store, ignore_errors=True)
+    t_phase = time.perf_counter()
+    name, cfg, B, S = tbench._config_ladder(ttf)[0]
+    check(name == "0.9B" and (B, S) == (FSDP_TRAIN["batch"],
+                                        FSDP_TRAIN["seq"]),
+          f"{tag} the bench's 0.9B row changed")
+    print(f"{tag} {name}: {num_params(cfg):,} params, "
+          f"{cfg.num_layers} layers, {cfg.num_heads} heads of "
+          f"{cfg.head_dim_}, remat {cfg.remat_policy}, fused_ce "
+          f"{cfg.fused_ce}, AdamW bf16 mu/nu; b={B}, s={S}")
+    ref = ref or f"{kind}1"
+    if ref != f"{kind}1":
+        print(f"{tag} one rank: {ref}'s run (the same step)")
+    runs = {run: report_split_train(tag, store, run, n, smi)
+            for run, n in ((ref, 1), (f"{kind}2", 2))}
+    two = runs[f"{kind}2"]
+    check(all(r["transport"] == "gloo-host" for r in two),
+          f"{tag} the {kind} collectives did not stage through "
+          "host buffers")
+    if kind == "tensor":
+        check_tensor_comm(tag, two, cfg)
+    check_split(tag, store, runs, smi, kind, (ref, f"{kind}2"))
+    print(f"{tag} checks {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4459,13 +4661,31 @@ def main() -> int:
         phase_train_runtime(smi, train_ref)
         print("chip_smoke: [train-runtime] alone passed")
         return 0
+    if sys.argv[1:] == ["--phase", "runtime"]:
+        # [runtime] alone, with [main] before it as its reference.
+        cfg = TransformerConfig.llama2_7b()
+        params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+        launches_main, eng, prompts, max_new, _, streams_main = \
+            phase_main_path(dev, params, cfg)
+        main_captures = eng.graphs.captures
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_runtime(smi, prompts, max_new, streams_main, launches_main,
+                      main_captures, cfg.num_layers)
+        print("chip_smoke: [runtime] alone passed")
+        return 0
     if sys.argv[1:] == ["--phase", "seq"]:
         phase_seq(smi)
         print("chip_smoke: [seq] alone passed")
         return 0
     if sys.argv[1:] == ["--phase", "fsdp"]:
-        phase_fsdp(smi)
+        phase_split(smi, "fsdp")
         print("chip_smoke: [fsdp] alone passed")
+        return 0
+    if sys.argv[1:] == ["--phase", "tensor"]:
+        phase_split(smi, "tensor")
+        print("chip_smoke: [tensor] alone passed")
         return 0
     worst = phase_kernels(dev)
     for kname, err in phase_kernels(dev, pr7_draws=True).items():
@@ -4532,8 +4752,17 @@ def main() -> int:
     phase_serve(smi, prompts, max_new, pipe_prompts[:16], pipe_prompts[16:],
                 pipe_new, streams)
     phase_train_runtime(smi, train_ref)
-    phase_seq(smi)
-    phase_fsdp(smi)
+    store = tempfile.mkdtemp(prefix="meshes_")
+    try:
+        # One cluster for the mesh phases' runs; [fsdp]'s {fsdp: 1} run
+        # is also the one-rank step [tensor] is held to.
+        fit_mesh_runs("[seq] [fsdp] [tensor]", store, SEQ_RUNS
+                      + split_runs("fsdp") + split_runs("tensor", one=False))
+        phase_seq(smi, store)
+        phase_split(smi, "fsdp", store)
+        phase_split(smi, "tensor", store, ref="fsdp1")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
     kernels = []
     for kname, spec in KERNELS.items():

@@ -34,12 +34,27 @@ reference's contract, global tokens [b, S] in and global tensors out:
 each rank embeds its chunk of S/n tokens at their global RoPE positions,
 runs the layers with the ring, and the chunks are gathered along `seq`.
 `loss_fn` never gathers: it runs the cross-entropy on the rank's chunk
-and takes the mean over the (nll sum, count) pair summed over the mesh,
-so every rank returns the global loss and its gradient is the rank's
-share, which ShardedTrainStep sums over the mesh.  On an `fsdp` axis
-the model takes whole params (ShardedTrainStep gathers them) and each
-rank runs its rows of the batch.  The other axes (tensor, expert,
-stage) and MoE on a mesh of more than one rank raise
+and takes the mean over the (nll sum, count) pair summed over the mesh
+without `tensor`, so every rank returns the global loss and its
+gradient is the rank's share, which ShardedTrainStep sums over the
+mesh without `tensor`.  On an `fsdp` axis the model takes whole params
+(ShardedTrainStep gathers them) and each rank runs its rows of the
+batch.
+
+Tensor parallelism (Megatron's layout, the reference's rules: heads,
+mlp and vocab over `tensor`): on an ambient mesh whose `tensor` axis t
+is larger than one, the model takes the rank's blocks of the params
+the rules split over `tensor` (wq, wk, wv, w_gate and w_up by columns,
+wo and w_down by rows, the tied embedding by vocabulary rows) and runs
+num_heads / t query and num_kv_heads / t K/V heads; `comm.copy_to_tensor`
+enters each column-parallel pair of products and `comm.reduce_from_tensor`
+sums each row-parallel product and the embedding's rows (a token
+outside the rank's rows embeds as zeros).  The cross-entropy runs on the
+rank's [V/t, h] block and combines the max, sum of exponentials and
+target logit over `tensor`; `forward` returns whole logits (an
+all-gather of the blocks).  Every tensor rank runs the same rows and
+holds the same activations between layers.  tensor with seq, the other
+axes (expert, stage) and MoE on a mesh of more than one rank raise
 NotImplementedError, naming their ROADMAP items.
 
 `logical_axes` names each param's dims for the sharding rules
@@ -64,7 +79,7 @@ from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models.moe import moe_ffn
 from ray_tpu_torch.models.remat import Remat, check_policy, linear, run
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.ops.fused_ce import fused_ce_nll
+from ray_tpu_torch.ops.fused_ce import fused_ce_nll, vocab_parallel_nll
 from ray_tpu_torch.ops.ring_attention import (
     gather_axis,
     local_chunk,
@@ -72,7 +87,7 @@ from ray_tpu_torch.ops.ring_attention import (
 )
 from ray_tpu_torch.parallel import comm
 from ray_tpu_torch.parallel.mesh import (Mesh, current_mesh, one_process_mesh,
-                                         require_replicated)
+                                         require_placeable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +211,11 @@ def init_params(config: TransformerConfig, seed: int = 0, *,
                       else shapes[-2])
 
     return build(param_shapes(config))
+
+
+# The logical dims the tensor-parallel model runs split over `tensor`;
+# every other dim it takes whole (module docstring).
+TENSOR_DIMS = ("heads", "mlp", "vocab")
 
 
 def logical_axes(config: TransformerConfig) -> Dict[str, Any]:
@@ -353,31 +373,67 @@ def _use_ring(config: TransformerConfig) -> bool:
     return False
 
 
-def _ring_mesh(config: TransformerConfig) -> Optional[Mesh]:
-    """The ambient mesh when attention runs the ring, else None; raises
-    for what a mesh of this slice cannot run."""
+def _meshes(config: TransformerConfig
+            ) -> Tuple[Optional[Mesh], Optional[Mesh]]:
+    """(ring, tp): the ambient mesh when attention runs the ring, and
+    when its `tensor` axis splits heads, mlp and vocab, else None each;
+    raises for what a mesh of the port cannot run."""
     mesh = current_mesh()
     if mesh is not None and mesh.size > 1:
-        require_replicated(mesh.shape)
+        require_placeable(mesh.shape)
         if config.num_experts > 0:
             raise NotImplementedError(
                 "MoE on a mesh of more than one rank: the router's aux "
                 "loss is not additive over shards; expert parallelism "
                 "waits for the expert-parallel slice (ROADMAP Queue A "
                 "item 6d)")
+    tp = None
+    if mesh is not None and mesh.axis_size("tensor") > 1:
+        t = mesh.axis_size("tensor")
+        if config.num_heads % t or config.num_kv_heads % t:
+            raise ValueError(
+                f"{config.num_heads} heads and {config.num_kv_heads} K/V "
+                f"heads do not both split over {t} tensor ranks")
+        tp = mesh
     if not _use_ring(config):
-        return None
+        return None, tp
     if mesh is None:
         raise ValueError("ring_attention requires a mesh "
                          "(run under `with mesh:`)")
-    return mesh
+    return mesh, tp
+
+
+def _check_tensor_blocks(params: Dict[str, Any], c: TransformerConfig,
+                         t: int) -> None:
+    """Raise unless `params` are a tensor rank's blocks: each TENSOR_DIMS
+    dim 1/t of the config's and every other dim whole.  Other blocks
+    would give wrong numbers without an error (a whole MLP summed t
+    times, a log-sum-exp over t whole vocabularies)."""
+    def walk(shapes, names, got, path):
+        if isinstance(shapes, dict):
+            for k in shapes:
+                walk(shapes[k], names[k], got[k], f"{path}{k}/")
+            return
+        want = list(shapes)
+        # From the right: the stacked layer dim may have no name.
+        for i, name in enumerate(reversed(names)):
+            if name in TENSOR_DIMS:
+                want[-1 - i] //= t
+        if tuple(got.shape) != tuple(want):
+            raise ValueError(
+                f"{path[:-1]} of shape {tuple(got.shape)} on {t} tensor "
+                f"ranks: the tensor-parallel model takes {tuple(want)}, "
+                f"its {'/'.join(TENSOR_DIMS)} dims split over tensor and "
+                "the rest whole")
+
+    walk(param_shapes(c), logical_axes(c), params, "")
 
 
 def _attention(q, k, v, mask, config: TransformerConfig,
                memo: Optional[Remat] = None,
                ring: Optional[Mesh] = None) -> torch.Tensor:
     """q:[b,s,h,hd] k,v:[b,s,kv,hd] causal attention with GQA; with
-    `ring` (the mesh `_ring_mesh` gave the forward) q, k and v are this
+    `ring` (the mesh `_meshes` gave the forward) q, k and v are this
     rank's chunks of the sequence and attention is the ring over its
     `seq` axis.  The mesh travels as an argument, not as the ambient
     mesh: a checkpoint's re-run happens in the backward, on autograd's
@@ -390,24 +446,32 @@ def _attention(q, k, v, mask, config: TransformerConfig,
 
 
 def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig,
-           memo: Optional[Remat] = None, ring: Optional[Mesh] = None):
+           memo: Optional[Remat] = None, ring: Optional[Mesh] = None,
+           tp: Optional[Mesh] = None):
     """One layer; `memo` is the layer's remat policy under checkpoint,
-    `ring` the mesh whose `seq` axis attention runs the ring over."""
+    `ring` the mesh whose `seq` axis attention runs the ring over, `tp`
+    the mesh whose `tensor` axis splits the layer's heads and MLP (the
+    weights `bp` are then the rank's blocks).  A checkpoint's re-run
+    issues the forward's all-reduces again up to the layer's last saved
+    tensor (the attention's, not the MLP's: the re-run stops there), in
+    the same order on every rank."""
     c = config
     hd = c.head_dim_
     b, s, _ = x.shape
-    y = rms_norm(x, bp["attn_norm"], c.rms_eps)
+    t = 1 if tp is None else tp.axis_size("tensor")
+    heads, kv_heads = c.num_heads // t, c.num_kv_heads // t
+    y = comm.copy_to_tensor(rms_norm(x, bp["attn_norm"], c.rms_eps), tp)
     cg = cos[positions][:, :, None, :]
     sg = sin[positions][:, :, None, :]
-    q = _ProjRope.apply(y, bp["wq"].to(c.dtype), cg, sg, c.num_heads, memo,
-                        "q")
-    k = _ProjRope.apply(y, bp["wk"].to(c.dtype), cg, sg, c.num_kv_heads,
-                        memo, "k")
+    q = _ProjRope.apply(y, bp["wq"].to(c.dtype), cg, sg, heads, memo, "q")
+    k = _ProjRope.apply(y, bp["wk"].to(c.dtype), cg, sg, kv_heads, memo,
+                        "k")
     v = linear(y, bp["wv"].to(c.dtype), memo, "v").reshape(
-        b, s, c.num_kv_heads, hd)
+        b, s, kv_heads, hd)
     attn = _attention(q, k, v, mask, c, memo, ring).reshape(b, s,
-                                                      c.num_heads * hd)
-    x = x + linear(attn, bp["wo"].to(c.dtype), memo, "attn_proj")
+                                                      heads * hd)
+    x = x + comm.reduce_from_tensor(
+        linear(attn, bp["wo"].to(c.dtype), memo, "attn_proj"), tp)
     y = rms_norm(x, bp["mlp_norm"], c.rms_eps)
     if c.num_experts > 0:
         out, aux = moe_ffn(
@@ -415,13 +479,26 @@ def _block(x, bp, cos, sin, positions, mask, config: TransformerConfig,
             bp["we_down"], num_experts_per_token=c.num_experts_per_token,
             capacity_factor=c.capacity_factor, dtype=c.dtype, memo=memo)
         return x + out.reshape(x.shape), aux
+    y = comm.copy_to_tensor(y, tp)
     gate = F.silu(linear(y, bp["w_gate"].to(c.dtype), memo, "gate"))
     up = linear(y, bp["w_up"].to(c.dtype), memo, "up")
-    return x + (gate * up) @ bp["w_down"].to(c.dtype), None
+    return x + comm.reduce_from_tensor(
+        (gate * up) @ bp["w_down"].to(c.dtype), tp), None
 
 
-def _embed_tokens(params, tokens, c: TransformerConfig) -> torch.Tensor:
-    return params["tok_embed"].to(c.dtype)[tokens]
+def _embed_tokens(params, tokens, c: TransformerConfig,
+                  tp: Optional[Mesh] = None) -> torch.Tensor:
+    """The embedding's rows of `tokens`; with `tp`, of the rank's block
+    of vocabulary rows (zeros for a token outside it), summed over
+    `tensor`."""
+    table = params["tok_embed"].to(c.dtype)
+    if tp is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - tp.axis_index("tensor") * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], table[local.clamp(0, n - 1)], 0)
+    return comm.reduce_from_tensor(rows, tp)
 
 
 def lm_logits(x: torch.Tensor, tok_embed: torch.Tensor,
@@ -456,30 +533,33 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     sequence and the chunks are gathered along `seq`."""
     c = config
     check_supported(c)
-    mesh = _ring_mesh(c)
+    mesh, tp = _meshes(c)
     if mesh is None:
-        return _forward_chunk(params, tokens, c, positions)
+        return _forward_chunk(params, tokens, c, positions, tp=tp)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x, aux = _forward_chunk(params, local_chunk(tokens, mesh, "seq", 1), c,
-                            local_chunk(positions, mesh, "seq", 1), mesh)
+                            local_chunk(positions, mesh, "seq", 1), mesh, tp)
     return gather_axis(x, mesh, "seq", 1), aux
 
 
 def _forward_chunk(params: Dict[str, Any], tokens: torch.Tensor,
                    c: TransformerConfig,
                    positions: Optional[torch.Tensor] = None,
-                   ring: Optional[Mesh] = None
+                   ring: Optional[Mesh] = None, tp: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """forward_hidden on this rank's tokens at `positions` (their global
     positions under the ring; 0..s-1 by default), with the ring over
-    `ring`'s seq axis when it is given."""
+    `ring`'s seq axis when it is given and the heads, MLP and vocabulary
+    split over `tp`'s tensor axis when that is."""
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(s, device=dev).expand(b, s)
-    x = _embed_tokens(params, tokens, c)
+    if tp is not None:
+        _check_tensor_blocks(params, c, tp.axis_size("tensor"))
+    x = _embed_tokens(params, tokens, c, tp)
     cos, sin = rope_freqs(c.head_dim_, c.max_seq_len, c.rope_theta,
                           device=dev)
     mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[None,
@@ -498,12 +578,12 @@ def _forward_chunk(params: Dict[str, Any], tokens: torch.Tensor,
         if remat:
             memo = Remat(c.remat_policy)
             x, layer_aux = checkpoint(_block, x, bp, cos, sin, positions,
-                                      mask, c, memo, ring,
+                                      mask, c, memo, ring, tp,
                                       use_reentrant=False)
             memo.replay = True
         else:
             x, layer_aux = _block(x, bp, cos, sin, positions, mask, c,
-                                  ring=ring)
+                                  ring=ring, tp=tp)
         if layer_aux is not None:
             aux = aux + layer_aux
     return rms_norm(x, params["final_norm"], c.rms_eps), aux
@@ -513,11 +593,18 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
             config: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
             return_aux: bool = False):
-    """tokens: [b, s] int → logits [b, s, vocab] (fp32).  With
-    return_aux=True also the router's load-balance loss summed over
-    layers (zero for dense models)."""
+    """tokens: [b, s] int → logits [b, s, vocab] (fp32), whole on every
+    rank (under tensor parallelism gathered from the vocabulary
+    blocks).  With return_aux=True also the router's load-balance loss
+    summed over layers (zero for dense models)."""
+    _, tp = _meshes(config)
     x, aux = forward_hidden(params, tokens, config, positions)
-    logits = lm_logits(x, params["tok_embed"], config)
+    if tp is None:
+        logits = lm_logits(x, params["tok_embed"], config)
+    else:
+        logits = comm.gather_last(
+            lm_logits(comm.copy_to_tensor(x, tp), params["tok_embed"],
+                      config), tp)
     if return_aux:
         return logits, aux
     return logits
@@ -525,16 +612,21 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor,
 
 def _token_nll(params, inputs, targets, config: TransformerConfig,
                positions: Optional[torch.Tensor] = None,
-               ring: Optional[Mesh] = None):
-    """(nll [b, s] fp32, moe aux) of next-token prediction, fused or not."""
-    x, aux = _forward_chunk(params, inputs, config, positions, ring)
+               ring: Optional[Mesh] = None, tp: Optional[Mesh] = None):
+    """(nll [b, s] fp32, moe aux) of next-token prediction, fused or not;
+    with `tp`, on the rank's vocabulary block (x enters through
+    `copy_to_tensor`, so its gradient is summed over `tensor`)."""
+    x, aux = _forward_chunk(params, inputs, config, positions, ring, tp)
+    x = comm.copy_to_tensor(x, tp)
     if config.fused_ce:
         b, s = inputs.shape
         nll = fused_ce_nll(x.reshape(b * s, -1), params["tok_embed"],
-                           targets.reshape(-1))
+                           targets.reshape(-1), tp)
         return nll.view(b, s), aux
-    logp = torch.log_softmax(lm_logits(x, params["tok_embed"], config),
-                             dim=-1)
+    logits = lm_logits(x, params["tok_embed"], config)
+    if tp is not None:
+        return vocab_parallel_nll(logits, targets, tp), aux
+    logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets[..., None])[..., 0], aux
 
 
@@ -549,18 +641,20 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     On a mesh (the ambient one, else this process alone) the
     cross-entropy runs on this rank's rows and, under the ring, its
     chunk of the sequence at their global positions, never gathered.
-    The (nll sum, count) pair is summed over the whole mesh, so every
-    rank returns the global mean, bit for bit the same; its gradient is
-    this rank's share (its own sum over the global count), which the
-    step sums over the mesh.  Without the ring every seq rank runs the
-    whole sequence, and the sum counts it once per rank in both terms."""
+    The (nll sum, count) pair is summed over the mesh without `tensor`
+    (tensor ranks run the same rows), so every rank returns the global
+    mean, bit for bit the same; its gradient is this rank's share (its
+    own sum over the global count), which the step sums over the mesh
+    without `tensor`.  Without the ring every seq rank runs the whole
+    sequence, and the sum counts it once per rank in both terms."""
     check_supported(config)
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:]
-    ring = _ring_mesh(config) is not None
+    ring_mesh, tp = _meshes(config)
+    ring = ring_mesh is not None
     mesh = current_mesh() or one_process_mesh()
     b, s = inputs.shape
     n = mesh.axis_size("seq") if ring else 1
@@ -573,7 +667,7 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         b, s_loc)
     nll, aux = _token_nll(params, inputs[:, off:off + s_loc],
                           targets[:, off:off + s_loc], config, positions,
-                          mesh if ring else None)
+                          ring_mesh, tp)
     if mask is None:
         local = nll.sum()
         count = torch.tensor(float(nll.numel()), device=nll.device)
@@ -582,13 +676,13 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         local = (nll * m).sum()
         count = m.sum().detach()
     pair = comm.all_reduce_(torch.stack([local.detach(), count]),
-                            mesh.get_group())
+                            mesh.get_group(mesh.axes_but("tensor")))
     total = pair[1].clamp_min(1)
     # The value is the global mean exactly (local - local is 0); the
     # gradient flows through this rank's own sum.
     ce = pair[0] / total + (local - local.detach()) / total
     if config.num_experts > 0:
-        # MoE runs on one rank only (_ring_mesh).
+        # MoE runs on one rank only (_meshes).
         ce = ce + config.router_aux_coef * aux / config.num_layers
     return ce
 

@@ -13,11 +13,26 @@ fp32 copy of an operand is made; on the CPU both operands are widened to
 fp32, exact for bf16 values); dlogits are rounded to bf16 before the two
 backward products; dw comes back in w's dtype (the fp32 master).  These
 are plain products, left to torch.mm as the reference leaves them to XLA.
+
+Vocabulary parallel (the tied embedding's rows split over the `tensor`
+axis of a mesh `tp`, `w` the rank's [V/t, h] block of rows): the
+forward walks the block's chunks, then combines the running max (an
+all-reduce of the max), the sum of exponentials rescaled to it and the
+target logit (zero unless the target is in the block; one all-reduce
+of the sum of both) into the global log-sum-exp and target logit; the
+backward recomputes the block's logits against the global log-sum-exp,
+with the same rounding points, and returns the block's dw and the
+block's share of dx (the caller sums it over `tensor`: x enters
+through `comm.copy_to_tensor`).  `vocab_parallel_nll` is the same on
+the unfused path's whole [.., V/t] fp32 logits, differentiable.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from ray_tpu_torch.parallel import comm
 
 
 def _pick_chunks(vocab: int, target: int = 4096) -> int:
@@ -45,7 +60,7 @@ def _chunks(w: torch.Tensor):
 class _FusedCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, targets):
+    def forward(ctx, x, w, targets, tp):
         T = x.shape[0]
         xb = x.to(torch.bfloat16)
         m = torch.full((T,), float("-inf"), device=x.device)
@@ -62,6 +77,11 @@ class _FusedCE(torch.autograd.Function):
             idx = (targets - base).clamp(0, C - 1)
             tl = logits.gather(1, idx[:, None])[:, 0]
             tgt = torch.where(in_chunk, tl, tgt)
+        if tp is not None:
+            m_all = comm.reduced(m, tp, dist.ReduceOp.MAX)
+            s, tgt = comm.reduced(torch.stack([s * torch.exp(m - m_all),
+                                               tgt]), tp)
+            m = m_all
         lse = m + torch.log(s)
         ctx.save_for_backward(x, w, targets, lse)
         return lse - tgt
@@ -85,15 +105,43 @@ class _FusedCE(torch.autograd.Function):
             dx += _mm(dl16, wc)
             dws.append(_mm(dl16.t(), xb))
         dw = torch.cat(dws).to(w.dtype)
-        return dx.to(x.dtype), dw, None
+        return dx.to(x.dtype), dw, None, None
 
 
-def fused_ce_nll(x: torch.Tensor, w: torch.Tensor,
-                 targets: torch.Tensor) -> torch.Tensor:
+def fused_ce_nll(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                 tp=None) -> torch.Tensor:
     """Per-token NLL of a tied lm head without full logits.
 
     x:       [T, h]  final-norm hidden states (rounded to bf16)
-    w:       [V, h]  vocab projection (the tied embedding; any dtype)
-    targets: [T] integer
+    w:       [V, h]  vocab projection (the tied embedding; any dtype), or
+             with a mesh `tp` the rank's block of rows on its `tensor`
+             axis (module docstring)
+    targets: [T] integer (global vocabulary ids)
     Returns [T] fp32 NLL; callers apply their own mask/mean."""
-    return _FusedCE.apply(x, w, targets.long())
+    return _FusedCE.apply(x, w, targets.long() - _vocab_start(w.shape[0], tp),
+                          tp)
+
+
+def _vocab_start(n: int, tp) -> int:
+    """The first vocabulary id of the rank's block of `n` on `tp`'s
+    `tensor` axis; 0 for tp=None."""
+    return 0 if tp is None else tp.axis_index("tensor") * n
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       tp) -> torch.Tensor:
+    """-log softmax at `targets` of logits split over the `tensor` axis
+    of mesh `tp`: `logits` [..., V/t] fp32 the rank's block of columns,
+    `targets` [...] global ids.  lse = max + log(sum of exp(logits -
+    max)) with the max and sums over `tensor`, minus the target's logit
+    (from the rank that holds it); differentiable in `logits` (the max
+    as a constant, as in log_softmax's own gradient)."""
+    n = logits.shape[-1]
+    m = comm.reduced(logits.amax(dim=-1), tp, dist.ReduceOp.MAX)
+    local = targets - _vocab_start(n, tp)
+    inside = (local >= 0) & (local < n)
+    tl = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    sums = comm.reduce_from_tensor(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(inside, tl, 0.0)]), tp)
+    return m + torch.log(sums[0]) - sums[1]

@@ -2,9 +2,10 @@
 (`mesh.py`) and the collectives run over their axes (`comm.py`).
 
 Port of ray_tpu/parallel/.  So far the `data` and `seq` axes, whose
-params stay replicated, and the logical sharding rules with fsdp
-placement (`sharding.py`); tensor placement, the pipeline and expert
-all_to_all wait for later slices (ROADMAP.md, Queue A items 6b-6d).
+params stay replicated, and the logical sharding rules with fsdp and
+tensor placement (`sharding.py`; the tensor-parallel model's collectives
+in `comm.py`); the pipeline and expert all_to_all wait for later slices
+(ROADMAP.md, Queue A items 6c-6d).
 """
 
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401

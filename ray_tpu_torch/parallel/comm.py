@@ -14,10 +14,19 @@ CPU tests', 2.13):
                 buffers, explicitly (gloo's P2P takes CPU tensors only).
 
 NCCL needs one card per rank, so two ranks sharing one card run gloo.
+
+The tensor-parallel model's collectives are autograd Functions over the
+`tensor` axis of a mesh (Megatron's f and g): `copy_to_tensor` (identity
+forward, all-reduce backward) before a column-parallel product,
+`reduce_from_tensor` (all-reduce forward, identity backward) after a
+row-parallel one, and `gather_last` for whole logits from vocabulary
+blocks; each counts its calls, bytes and host seconds in the mesh's
+`tensor_comm`.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -47,16 +56,18 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum `t` in place over `group`; a no-op for no group."""
+def all_reduce_(t: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum `t` in place over `group` (or reduce it by `op`); a no-op for
+    no group."""
     if group is None:
         return t
     if transport(group, t.device) == "gloo-host":
         buf = _host(t)
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=op, group=group)
         t.copy_(buf)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -171,6 +182,91 @@ def reduce_scatter(t: torch.Tensor, ranks: List[int], group,
     shape[dim] //= n
     out = out.view(shape)
     return out.to(t.device) if mode == "gloo-host" else out
+
+
+def _counted(tp, nbytes: int, t0: float) -> None:
+    stats = tp.tensor_comm
+    stats["calls"] += 1
+    stats["bytes"] += nbytes
+    stats["seconds"] += time.perf_counter() - t0
+
+
+def reduced(t: torch.Tensor, tp, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or `op`) of `t` over the `tensor` axis of mesh `tp`, a
+    tensor of its own, its all-reduce counted in `tp.tensor_comm`; not
+    differentiable."""
+    t0 = time.perf_counter()
+    out = all_reduce_(t.detach().contiguous().clone(),
+                      tp.get_group("tensor"), op)
+    _counted(tp, out.nbytes, t0)
+    return out
+
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduced(g, ctx.tp), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return reduced(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.block = (tp.axis_index("tensor"), x.shape[-1])
+        t0 = time.perf_counter()
+        out = all_gather(x, tp.axis_ranks("tensor"), tp.get_group("tensor"),
+                         x.dim() - 1)
+        _counted(tp, out.nbytes, t0)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = ctx.block
+        return g.narrow(-1, i * n, n), None
+
+
+def copy_to_tensor(x: torch.Tensor, tp) -> torch.Tensor:
+    """The entry of a column-parallel product on the `tensor` ranks of
+    mesh `tp`: `x` itself forward; backward, the sum over `tensor` of
+    each rank's gradient (each rank's is the share of its own columns).
+    Identity for tp=None."""
+    if tp is None:
+        return x
+    return _CopyToTensor.apply(x, tp)
+
+
+def reduce_from_tensor(x: torch.Tensor, tp) -> torch.Tensor:
+    """The exit of a row-parallel product: the sum over the `tensor`
+    axis of mesh `tp` of every rank's partial `x` forward (an all-reduce
+    in x's dtype); backward, the gradient itself, the same on every
+    rank.  Identity for tp=None."""
+    if tp is None:
+        return x
+    return _ReduceFromTensor.apply(x, tp)
+
+
+def gather_last(x: torch.Tensor, tp) -> torch.Tensor:
+    """Every `tensor` rank's block `x` concatenated along the last dim
+    in the axis's order (e.g. whole logits from vocabulary blocks);
+    backward, this rank's block of the gradient, which every rank holds
+    whole.  Identity for tp=None."""
+    if tp is None:
+        return x
+    return _GatherLast.apply(x, tp)
 
 
 # Elements per step of tree_digest: bounds its int64 temporaries.

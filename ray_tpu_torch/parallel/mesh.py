@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -118,31 +118,35 @@ class MeshConfig:
 
 _ambient = threading.local()
 
-# The axes of more than one rank that place params apart, and the slice
-# that ports each (ROADMAP.md, Queue A).  fsdp is ported
-# (parallel/sharding.py); data and seq replicate params.
+# The axes of more than one rank that place params apart beyond the port,
+# and the slice that ports each (ROADMAP.md, Queue A).  fsdp and tensor
+# are ported (parallel/sharding.py); data and seq replicate params.
 _LATER = {
-    "tensor": "the sharding slice's tensor parallelism (ROADMAP Queue A "
-              "item 6b, tensor parallelism)",
     "stage": "the pipeline slice (ROADMAP Queue A item 6c)",
     "expert": "the expert-parallel slice (ROADMAP Queue A item 6d)",
 }
 
 
-def require_replicated(shape: Dict[str, int], named: Sequence[str] = ()
-                       ) -> None:
-    """Raise NotImplementedError for what places params apart beyond
-    this slice on a mesh of this shape (axis -> size): tensor, expert or
-    stage of more than one rank, or a `stage` axis among the `named`
-    ones.  data, seq and fsdp pass."""
+def require_placeable(shape: Dict[str, int], named: Sequence[str] = ()
+                      ) -> None:
+    """Raise NotImplementedError for what places params beyond the port
+    on a mesh of this shape (axis -> size): expert or stage of more
+    than one rank, a `stage` axis among the `named` ones, or tensor and
+    seq both of more than one rank.  data, seq, fsdp and tensor pass."""
     named = {canonical_axis(a) for a in named}
     for axis, later in _LATER.items():
         n = shape.get(axis, 1)
         if n > 1 or (axis == "stage" and axis in named):
             raise NotImplementedError(
                 f"mesh axis {axis!r} of {n}: the port shards params over "
-                f"fsdp and replicates them over data and seq; {axis} "
-                f"waits for {later}")
+                f"fsdp and tensor and replicates them over data and seq; "
+                f"{axis} waits for {later}")
+    if shape.get("tensor", 1) > 1 and shape.get("seq", 1) > 1:
+        raise NotImplementedError(
+            f"tensor of {shape['tensor']} with seq of {shape['seq']}: the "
+            "port runs tensor ranks with data and fsdp ranks; the ring "
+            "over heads split across tensor ranks waits for ROADMAP Queue "
+            "A item 6b, tensor with seq")
 
 
 def current_mesh() -> Optional["Mesh"]:
@@ -158,7 +162,9 @@ class Mesh:
     AXIS_ORDER; `device_mesh` the DeviceMesh over it (None for one
     process without a process group).  `rotations` counts the ring
     attention's K/V rotations over this mesh in this process (calls,
-    bytes sent, host seconds), for measurement."""
+    bytes sent, host seconds), and `tensor_comm` the collectives of the
+    tensor-parallel model over its `tensor` axis (calls, bytes reduced
+    or gathered, host seconds), for measurement."""
 
     axis_names: Tuple[str, ...] = AXIS_ORDER
 
@@ -170,6 +176,8 @@ class Mesh:
         self.rank = rank
         self.device_mesh = device_mesh
         self.rotations = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self.tensor_comm = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self._groups: Dict[Tuple[str, ...], Any] = {}
         where = np.argwhere(self.ranks == rank)
         if len(where) != 1:
             raise ValueError(f"rank {rank} is not once in the mesh")
@@ -195,16 +203,52 @@ class Mesh:
                     for b in AXIS_ORDER)
         return [int(r) for r in self.ranks[idx]]
 
-    def get_group(self, axis: Optional[str] = None):
-        """The process group of `axis` through this rank, or of the whole
-        mesh with axis=None; None for one process."""
+    def axes_but(self, *axes: str) -> Tuple[str, ...]:
+        """Every axis of the mesh but `axes`, in AXIS_ORDER."""
+        drop = {canonical_axis(a) for a in axes}
+        return tuple(a for a in AXIS_ORDER if a not in drop)
+
+    def get_group(self, axis: Union[str, Sequence[str], None] = None):
+        """The process group of `axis` through this rank, of the whole
+        mesh with axis=None, or, for a tuple of axes, of the ranks that
+        share this rank's coordinates on every other axis (e.g.
+        `axes_but("tensor")`); None for one process, and for a tuple
+        whose axes are all of one rank.
+
+        A tuple that holds every axis of more than one rank is the whole
+        mesh; one that holds one such axis is that axis's group.  A tuple
+        over two or more of them, but not all, is a group of its own
+        (`dist.new_group`, one per coordinate of the other axes): every
+        rank must ask for it first in the same order, since creating it
+        is collective.  It is made once per mesh and kept; `build_mesh`
+        makes the mesh without `tensor` at once."""
         if self.device_mesh is None:
             return None
         import torch.distributed as dist
 
         if axis is None:
             return dist.group.WORLD
-        return self.device_mesh.get_group(canonical_axis(axis))
+        if isinstance(axis, str):
+            return self.device_mesh.get_group(canonical_axis(axis))
+        axes = tuple(a for a in AXIS_ORDER
+                     if a in {canonical_axis(x) for x in axis}
+                     and self.shape[a] > 1)
+        if not axes:
+            return None
+        if len(axes) == sum(n > 1 for n in self.shape.values()):
+            return dist.group.WORLD
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if axes not in self._groups:
+            # One list of ranks per coordinate of the other axes: move
+            # `axes` innermost and flatten them.
+            inner = [AXIS_ORDER.index(a) for a in axes]
+            outer = [i for i in range(len(AXIS_ORDER)) if i not in inner]
+            lists = self.ranks.transpose(outer + inner).reshape(
+                -1, math.prod(self.shape[a] for a in axes)).tolist()
+            self._groups[axes], _ = dist.new_subgroups_by_enumeration(
+                lists)
+        return self._groups[axes]
 
     def __enter__(self) -> "Mesh":
         stack = getattr(_ambient, "stack", None)
@@ -257,7 +301,11 @@ def build_mesh(config: Optional[MeshConfig] = None,
     device_mesh = None
     if world > 1:
         device_mesh = _device_mesh(arr)
-    return Mesh(sizes, arr, rank=rank, device_mesh=device_mesh)
+    mesh = Mesh(sizes, arr, rank=rank, device_mesh=device_mesh)
+    # Collective (a group of its own when tensor and two other axes have
+    # more than one rank): made here, where every rank builds the mesh.
+    mesh.get_group(mesh.axes_but("tensor"))
+    return mesh
 
 
 def one_process_mesh(axes: Optional[Dict[str, int]] = None) -> Mesh:

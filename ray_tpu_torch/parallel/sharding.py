@@ -12,10 +12,12 @@ two through parallel/comm.py's collectives and their transports.
 
 A dim split over mesh axes is cut into equal blocks, one per coordinate
 on those axes, the first axis outermost (JAX's order); a dim that does
-not divide raises.  Layouts on a mesh whose `tensor`, `expert` or
-`stage` axis has more than one rank raise NotImplementedError naming
-their ROADMAP item (parallel/mesh.py `require_replicated`): this slice
-places over `fsdp` and `data`.
+not divide raises.  `gather` and `reduce_scatter` may walk chosen axes
+only (the train step gathers over `fsdp` and keeps the `tensor` blocks
+the model computes on).  Layouts on a mesh whose `expert` or `stage`
+axis has more than one rank, or whose `tensor` and `seq` axes both do,
+raise NotImplementedError naming their ROADMAP item (parallel/mesh.py
+`require_placeable`): the port places over `fsdp`, `tensor` and `data`.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ray_tpu_torch.parallel import comm
-from ray_tpu_torch.parallel.mesh import Mesh, require_replicated
+from ray_tpu_torch.parallel.mesh import Mesh, require_placeable
 
 Rules = Sequence[Tuple[str, Union[str, Tuple[str, ...], None]]]
 
@@ -102,7 +104,7 @@ class NamedSharding:
     `spec[i]` names (missing trailing entries: replicated)."""
 
     def __init__(self, mesh: Mesh, spec: Sequence[Any]):
-        require_replicated(mesh.shape)
+        require_placeable(mesh.shape)
         self.mesh = mesh
         self.spec = PartitionSpec(*spec)
 
@@ -156,23 +158,54 @@ class NamedSharding:
             out = out.narrow(d, self._block(axes) * size[d], size[d])
         return out.clone(memory_format=torch.contiguous_format)
 
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
+    def _walk(self, ndim: int, axes: Optional[Sequence[str]]):
+        """(dim, its split axes among `axes`) for each split dim; None:
+        every split axis.  A dim split over a chosen axis inside one that
+        is not raises: its partial gather would be no contiguous block."""
+        for d, split in self.split_dims(ndim).items():
+            chosen = split if axes is None else tuple(
+                a for a in split if a in axes)
+            if chosen and chosen != split[len(split) - len(chosen):]:
+                raise ValueError(
+                    f"dim {d} is split over {split}: gathering over "
+                    f"{chosen} alone leaves no contiguous block")
+            if chosen:
+                yield d, chosen
+
+    def gather(self, t: torch.Tensor,
+               axes: Optional[Sequence[str]] = None) -> torch.Tensor:
         """The whole tensor from this rank's block `t` (an all-gather over
-        each split dim's axes, innermost first)."""
-        for d, axes in self.split_dims(t.dim()).items():
-            for a in reversed(axes):
+        each split dim's axes, innermost first); with `axes`, over those
+        axes only: the block of the layout without them."""
+        for d, split in self._walk(t.dim(), axes):
+            for a in reversed(split):
                 t = comm.all_gather(t, self.mesh.axis_ranks(a),
                                     self.mesh.get_group(a), d)
         return t
 
-    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor,
+                       axes: Optional[Sequence[str]] = None
+                       ) -> torch.Tensor:
         """This rank's block of the sum over the split dims' axes of the
-        whole tensors `t` (a reduce-scatter per axis, outermost first)."""
-        for d, axes in self.split_dims(t.dim()).items():
-            for a in axes:
+        whole tensors `t` (a reduce-scatter per axis, outermost first);
+        with `axes`, over those axes only, from blocks of the layout
+        without them."""
+        for d, split in self._walk(t.dim(), axes):
+            for a in split:
                 t = comm.reduce_scatter(t, self.mesh.axis_ranks(a),
                                         self.mesh.get_group(a), d)
         return t
+
+    def without(self, axes: Sequence[str]) -> "NamedSharding":
+        """This layout with no split over `axes`."""
+        def keep(part):
+            parts = part if isinstance(part, tuple) else (part,)
+            left = tuple(a for a in parts if a is not None
+                         and a not in axes)
+            return None if not left else left[0] if len(left) == 1 \
+                else left
+
+        return NamedSharding(self.mesh, [keep(p) for p in self.spec])
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
@@ -272,7 +305,7 @@ def shard_tree(params: Any, mesh: Mesh, rules: Rules = DEFAULT_RULES,
                logical_tree: Any = None) -> Any:
     """Each rank's blocks of a whole param tree, with inferred or provided
     logical axes (the reference device-puts the tree on the shardings)."""
-    require_replicated(mesh.shape)
+    require_placeable(mesh.shape)
     if logical_tree is None:
         logical_tree = infer_logical_axes(params)
     shardings = tree_shardings(mesh, logical_tree, rules)

@@ -11,10 +11,11 @@ builds these on `parallel/` (`build_mesh`, `shard_tree`,
 - `prepare_pytree` puts a tree on the worker's device
   (`torch_backend.get_device`), gives every rank rank 0's values and
   keeps each rank's block of every leaf the sharding rules split
-  (`shard_tree`: on a mesh with `fsdp` of one rank every leaf stays
-  whole);
+  (`shard_tree`: embed over `fsdp`, heads, mlp and vocab over `tensor`;
+  on a mesh with both of one rank every leaf stays whole);
 - `shard_batch` keeps the rows of the rank's `data` x `fsdp` coordinate
-  (`data_sharding`), on the worker's device.
+  (`data_sharding`), on the worker's device; tensor ranks take the same
+  rows.
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ def prepare_pytree(params: Any, mesh: Optional[Mesh] = None,
 
 def shard_batch(batch: Any, mesh: Optional[Mesh] = None) -> Any:
     """This rank's rows of a host batch (the leading dim split over the
-    mesh's `data` and `fsdp` axes), on the worker's device
+    mesh's `data` and `fsdp` axes, the same on every `tensor` rank), on
+    the worker's device
     (prepare_data_loader equivalent, per batch)."""
     mesh = mesh if mesh is not None else get_mesh()
     layout = data_sharding(mesh)

@@ -11,15 +11,21 @@ gradients summed over the mesh, the optimizer's update, new params.
 The params' layout follows the sharding rules (parallel/sharding.py) on
 the model's logical axes, as in the reference: on an `fsdp` axis of more
 than one rank each rank holds its block of every leaf with an `embed`
-dim, and the Adam moments mirror that layout; the other leaves (the
-norms) and every leaf on `data` and `seq` ranks stay replicated,
-bit-equal on every rank.  A step gathers the whole params before the
-loss, reduce-scatters the gradients of the split leaves over `fsdp` and
-sums them over `data`, and sums the replicated leaves' over the mesh.
-The clip's global norm, and the reported `grad_norm`, sum the squares
-of every block.  tensor and expert of more than one rank, a pipeline
-`stage` axis, and fsdp together with seq raise NotImplementedError
-naming the slice that ports them.
+dim, on a `tensor` axis its block of every leaf with a `heads`, `mlp`
+or `vocab` dim, and the Adam moments mirror that layout; the other
+leaves (the norms) and every leaf on `data` and `seq` ranks stay
+replicated, bit-equal on every rank.  A step gathers the params over
+`fsdp` before the loss, into the layout the model computes on
+(`compute_shardings`: the tensor blocks stay split, and the model's
+tensor-parallel layers run on them), reduce-scatters the gradients of
+the fsdp-split leaves over `fsdp` and sums them over `data`, and sums
+the other leaves' over the mesh without `tensor` (a tensor rank's
+gradient of its block is whole; the norms' are equal on every tensor
+rank).  The clip's global norm, and the reported `grad_norm`, sum the
+squares of every block over the axes that split it.  expert of more
+than one rank, a pipeline `stage` axis, fsdp together with seq and
+tensor together with seq raise NotImplementedError naming the slice
+that ports them.
 
 `state_from_numpy` carries the reference's train state across (params,
 Adam count/mu/nu, schedule counts), so both sides can start from the same
@@ -40,7 +46,7 @@ from ray_tpu_torch import DeviceLike, resolve_device
 from ray_tpu_torch.models import transformer as tfm
 from ray_tpu_torch.parallel import comm
 from ray_tpu_torch.parallel.mesh import (Mesh, canonical_axis, one_process_mesh,
-                                         require_replicated)
+                                         require_placeable)
 from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
                                              data_sharding, tree_shardings)
 from ray_tpu_torch.train import optim
@@ -70,8 +76,8 @@ def default_optimizer(learning_rate: float = 3e-4,
 
 
 class ShardedTrainStep:
-    """init/step/eval functions on a mesh of data x fsdp or data x seq
-    ranks.
+    """init/step/eval functions on a mesh of data x fsdp x tensor or
+    data x seq ranks.
 
     Usage (on every rank of the process group):
         mesh = build_mesh(axes={"data": 2, "fsdp": 2})
@@ -81,17 +87,20 @@ class ShardedTrainStep:
 
     `mesh` is a `Mesh`, or None or an axes dict for one process, e.g.
     {"fsdp": 1}.  Every rank passes the same global batch; the step
-    keeps the rows of the rank's `data` x `fsdp` coordinate, gathers the
-    params it holds in blocks, runs the loss under `with mesh:` (the
-    ring over `seq`), reduces the gradients (module docstring; the loss
-    is already the global mean), then clips and updates each rank's
-    blocks as on one device.  `param_shardings` holds each leaf's
-    layout.  `num_microbatches` feeds the pipelined loss of the
+    keeps the rows of the rank's `data` x `fsdp` coordinate (tensor
+    ranks take the same rows), gathers over fsdp the params it holds in
+    blocks, runs the loss under `with mesh:` (the ring over `seq`, the
+    tensor-parallel layers over `tensor`), reduces the gradients (module
+    docstring; the loss is already the global mean), then clips and
+    updates each rank's blocks as on one device.  `param_shardings`
+    holds each leaf's layout at rest, `compute_shardings` the layout the
+    model runs on.  `num_microbatches` feeds the pipelined loss of the
     reference, which this step never takes.  `last_comm` holds the last
     step's collectives: "bytes" and "seconds" in all, and per kind
-    ("gather", "reduce_scatter", "all_reduce"); the bytes of a gather or
-    reduce-scatter are those of the whole leaves, of an all-reduce those
-    of its buffers.
+    ("gather", "reduce_scatter", "all_reduce", and "tensor": the
+    model's all-reduces and all-gathers over `tensor`); the bytes of a
+    gather or reduce-scatter are those of the gathered leaves, of an
+    all-reduce or a tensor collective those of its buffers.
     """
 
     def __init__(self, config: tfm.TransformerConfig,
@@ -102,10 +111,10 @@ class ShardedTrainStep:
                  num_microbatches: Optional[int] = None,
                  device: DeviceLike = None):
         if isinstance(mesh, Mesh):
-            require_replicated(mesh.shape)
+            require_placeable(mesh.shape)
         else:
             axes = {canonical_axis(a): int(n) for a, n in (mesh or {}).items()}
-            require_replicated(axes, named=axes)
+            require_placeable(axes, named=axes)
             mesh = one_process_mesh(axes)
         if mesh.axis_size("fsdp") > 1 and mesh.axis_size("seq") > 1:
             raise NotImplementedError(
@@ -123,21 +132,38 @@ class ShardedTrainStep:
         self.param_logical = tfm.logical_axes(config)
         self.param_shardings = tree_shardings(mesh, self.param_logical,
                                               rules)
+        self.compute_shardings = optim.tree_map(
+            lambda s: s.without(("fsdp",)), self.param_shardings)
         self.batch_sharding = data_sharding(mesh)
         self._layouts = optim.tree_leaves(self.param_shardings)
-        for layout in self._layouts:
-            axes = {a for split in layout.split_dims(
-                len(layout.spec)).values() for a in split}
-            if axes - {"fsdp"}:
+        # Per leaf, the axes that split it.
+        self._split = [{a for split in s.split_dims(len(s.spec)).values()
+                        for a in split} for s in self._layouts]
+        for split in self._split:
+            if split - {"fsdp", "tensor"}:
                 raise ValueError(
-                    f"rules {rules} split a param over {sorted(axes)}: "
-                    "params split over fsdp only")
-        self.sharded = not all(s.is_fully_replicated for s in self._layouts)
+                    f"rules {rules} split a param over {sorted(split)}: "
+                    "params split over fsdp and tensor only")
+        if mesh.axis_size("tensor") > 1:
+            # The tensor-parallel model's layout, checked here rather
+            # than at the first step.
+            want = tree_shardings(mesh, self.param_logical,
+                                  [(d, "tensor") for d in tfm.TENSOR_DIMS])
+            for got, need in zip(optim.tree_leaves(self.compute_shardings),
+                                 optim.tree_leaves(want)):
+                if got.split_dims(len(got.spec)) != \
+                        need.split_dims(len(need.spec)):
+                    raise ValueError(
+                        f"rules {rules} place a param {got.spec} on the "
+                        f"tensor ranks, not {need.spec}: the tensor-parallel "
+                        f"model splits its {'/'.join(tfm.TENSOR_DIMS)} dims "
+                        "over tensor and takes the rest whole")
+        self.sharded = any(self._split)
         self.last_comm = self._comm_stats()
 
     @staticmethod
     def _comm_stats() -> Dict[str, Any]:
-        kinds = ("gather", "reduce_scatter", "all_reduce")
+        kinds = ("gather", "reduce_scatter", "all_reduce", "tensor")
         return {"bytes": 0, "seconds": 0.0,
                 **{k: {"bytes": 0, "seconds": 0.0} for k in kinds}}
 
@@ -218,7 +244,7 @@ class ShardedTrainStep:
     def check_replicated(self, tree: Any) -> int:
         """Raise unless every rank of the mesh holds `tree` bit for bit
         (comm.tree_digest); returns the digest, the same on every rank.
-        For blocks, check `gather(params)`."""
+        Blocks differ by rank: pass gathered trees (`gather(params)`)."""
         same, digests = comm.digests_equal(optim.tree_leaves(tree),
                                            self.mesh.get_group())
         if not same:
@@ -226,62 +252,75 @@ class ShardedTrainStep:
                                f"{digests}")
         return digests[0]
 
+    def _compute(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The params in the layout the model computes on
+        (`compute_shardings`): gathered over fsdp, the tensor blocks
+        kept."""
+        return optim.tree_map(lambda t, s: s.gather(t, ("fsdp",)), params,
+                              self.param_shardings)
+
     def _whole(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        if not self.sharded:
+        """`_compute(params)`, its gather counted."""
+        fsdp = [("fsdp" in split) for split in self._split]
+        if not any(fsdp):
             return params
         t0 = time.perf_counter()
-        whole = self.gather(params)
-        split = [w for w, s in zip(optim.tree_leaves(whole), self._layouts)
-                 if not s.is_fully_replicated]
-        self._count("gather", sum(w.nbytes for w in split), t0)
+        whole = self._compute(params)
+        self._count("gather", sum(
+            w.nbytes for w, x in zip(optim.tree_leaves(whole), fsdp) if x),
+            t0)
         return whole
 
     def _reduce(self, grads: Dict[str, Any]) -> Dict[str, Any]:
-        """Whole gradients (this rank's share) to the layout of the
-        params, summed over the mesh."""
-        group = self.mesh.get_group()
+        """Gradients in the compute layout (this rank's share) to the
+        layout of the params, summed over the mesh without `tensor`."""
+        group = self.mesh.get_group(self.mesh.axes_but("tensor"))
         if group is None:
             return grads
         leaves = optim.tree_leaves(grads)
-        split = [not s.is_fully_replicated for s in self._layouts]
+        fsdp = [("fsdp" in split) for split in self._split]
         out = list(leaves)
-        if self.sharded:
+        if any(fsdp):
             t0 = time.perf_counter()
             for i, (g, s) in enumerate(zip(leaves, self._layouts)):
-                if split[i]:
-                    out[i] = s.reduce_scatter(g)
+                if fsdp[i]:
+                    out[i] = s.reduce_scatter(g, ("fsdp",))
             self._count("reduce_scatter",
-                        sum(g.nbytes for g, x in zip(leaves, split) if x),
+                        sum(g.nbytes for g, x in zip(leaves, fsdp) if x),
                         t0)
             del leaves
             if self.mesh.axis_size("data") > 1:
                 t0 = time.perf_counter()
                 nbytes = comm.all_reduce_tree_(
-                    [g for g, x in zip(out, split) if x],
+                    [g for g, x in zip(out, fsdp) if x],
                     self.mesh.get_group("data"))
                 self._count("all_reduce", nbytes, t0)
         t0 = time.perf_counter()
         nbytes = comm.all_reduce_tree_(
-            [g for g, x in zip(out, split) if not x], group)
+            [g for g, x in zip(out, fsdp) if not x], group)
         self._count("all_reduce", nbytes, t0)
         return optim.tree_unflatten(grads, out)
 
     def _sum_squares(self, tree: Dict[str, Any]) -> torch.Tensor:
         """The sum of squares over every block of a tree in the params'
-        layout: each leaf's own sum, the split leaves' summed over
-        `fsdp` (their blocks are the same on every data rank), added in
-        leaf order."""
+        layout: each leaf's own sum, summed over each axis that splits
+        it (fsdp, then tensor: a leaf split over both sums over every
+        block once; blocks are the same on every data rank), a
+        replicated leaf's once, added in leaf order."""
         sq = torch.stack([t.float().square().sum()
                           for t in optim.tree_leaves(tree)])
-        split = torch.tensor([not s.is_fully_replicated
-                              for s in self._layouts], device=sq.device)
-        total = comm.all_reduce_(torch.where(split, sq, 0.0),
-                                 self.mesh.get_group("fsdp"))
-        return torch.where(split, total, sq).sum()
+        for axis in ("fsdp", "tensor"):
+            if self.mesh.axis_size(axis) > 1:
+                split = torch.tensor([axis in s for s in self._split],
+                                     device=sq.device)
+                total = comm.all_reduce_(torch.where(split, sq, 0.0),
+                                         self.mesh.get_group(axis))
+                sq = torch.where(split, total, sq)
+        return sq.sum()
 
     def _norms(self):
         """Where global_norm takes its sum of squares from in the
-        update: every block on an fsdp mesh."""
+        update: every block on an fsdp or tensor mesh."""
         if self.sharded:
             return optim.sum_squares_by(self._sum_squares)
         return contextlib.nullcontext()
@@ -295,6 +334,7 @@ class ShardedTrainStep:
         batch = self._batch(batch)
         self.last_comm = self._comm_stats()
         whole = self._whole(params)
+        before = dict(self.mesh.tensor_comm)
         with torch.enable_grad(), self.mesh:
             live = optim.tree_map(lambda p: p.detach().requires_grad_(),
                                   whole)
@@ -303,6 +343,9 @@ class ShardedTrainStep:
             grads = optim.tree_unflatten(live, list(torch.autograd.grad(
                 loss, optim.tree_leaves(live))))
         del live
+        for entry in (self.last_comm, self.last_comm["tensor"]):
+            for k in ("bytes", "seconds"):
+                entry[k] += self.mesh.tensor_comm[k] - before[k]
         return loss, self._reduce(grads)
 
     def step(self, state: Dict[str, Any], batch: Dict[str, Any]):
@@ -328,7 +371,7 @@ class ShardedTrainStep:
                   ) -> torch.Tensor:
         batch = self._batch(batch)
         with torch.no_grad():
-            whole = self.gather(params)
+            whole = self._compute(params)
             with self.mesh:
                 return self.loss_fn(whole, batch).float()
 

@@ -1647,3 +1647,89 @@ def test_two_rank_reduce_scatter_and_all_gather_on_the_card(cuda_cluster,
             assert torch.equal(block.to(dev),
                                total[:, r * half:(r + 1) * half]), (r, dtype)
             assert torch.equal(whole.to(dev), total), (r, dtype)
+
+
+def test_two_rank_tensor_collectives_on_the_card(cuda_cluster, tmp_path):
+    """Two num_gpus=0.5 TorchTrainer ranks on a tensor axis (gloo, CUDA
+    tensors staged through pinned host buffers): the tensor-parallel
+    model's collectives on each rank's seeded fp32 and bf16 tensor.
+    reduce_from_tensor's forward is the plain sum and its backward the
+    gradient itself; copy_to_tensor's forward is its input and its
+    backward the plain sum of the ranks' gradients; gather_last's
+    forward is the plain concatenation along the last dim and its
+    backward the rank's block of the gradient; each call counted in the
+    mesh's tensor_comm.  Bit for bit: two operands, one rounding."""
+    train = importlib.import_module(f"{PORT}.train")
+    backend = importlib.import_module(f"{PORT}.train.torch_backend")
+    port = PORT
+    shape = (3, 64, 40)
+
+    def inputs(dev, rank, dtype, seed=11):
+        gen = torch.Generator(device=dev).manual_seed(seed + rank)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def loop(config):
+        import importlib as _il
+        import os as _os
+
+        import torch.distributed as dist
+
+        mesh_mod = _il.import_module(f"{port}.parallel.mesh")
+        comm = _il.import_module(f"{port}.parallel.comm")
+        dev = _il.import_module(f"{port}.train.torch_backend").get_device()
+        mesh = mesh_mod.build_mesh(axes={"tensor": 2})
+        rank = dist.get_rank()
+        out = {"device": str(dev),
+               "transport": comm.transport(mesh.get_group("tensor"), dev)}
+        for dtype in (torch.float32, torch.bfloat16):
+            got = {}
+            x = inputs(dev, rank, dtype).requires_grad_()
+            y = comm.reduce_from_tensor(x, mesh)
+            y.backward(inputs(dev, rank, dtype, 31))
+            got["reduce"], got["reduce_grad"] = y.detach(), x.grad
+            x = inputs(dev, rank, dtype).requires_grad_()
+            y = comm.copy_to_tensor(x, mesh)
+            y.backward(inputs(dev, rank, dtype, 31))
+            got["copy"], got["copy_grad"] = y.detach(), x.grad
+            x = inputs(dev, rank, dtype).requires_grad_()
+            y = comm.gather_last(x, mesh)
+            y.backward(torch.cat([inputs(dev, r, dtype, 31)
+                                  for r in (0, 1)], dim=-1))
+            got["gather"], got["gather_grad"] = y.detach(), x.grad
+            out[str(dtype)] = {k: v.cpu() for k, v in got.items()}
+            out[str(dtype) + " devices"] = {str(v.device)
+                                            for v in got.values()}
+        out["stats"] = dict(mesh.tensor_comm)
+        torch.save(out, _os.path.join(config["dir"], f"{rank}.pt"))
+
+    train.TorchTrainer(
+        loop, train_loop_config={"dir": str(tmp_path)},
+        backend_config=backend.TorchConfig(backend="gloo"),
+        scaling_config=train.ScalingConfig(num_workers=2, use_gpu=True,
+                                           gpus_per_worker=0.5),
+        run_config=train.RunConfig(storage_path=str(tmp_path),
+                                   name="tensor_comm")).fit()
+    dev = torch.device("cuda")
+    numel = math.prod(shape)
+    for r in range(2):
+        got = torch.load(os.path.join(str(tmp_path), f"{r}.pt"),
+                         weights_only=True)
+        assert got["device"] == "cuda:0" and got["transport"] == "gloo-host"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = {k: v.to(dev) for k, v in got[str(dtype)].items()}
+            assert got[str(dtype) + " devices"] == {"cuda:0"}
+            mine, grad = inputs(dev, r, dtype), inputs(dev, r, dtype, 31)
+            total = inputs(dev, 0, dtype) + inputs(dev, 1, dtype)
+            grads = inputs(dev, 0, dtype, 31) + inputs(dev, 1, dtype, 31)
+            assert torch.equal(g["reduce"], total), (r, dtype)
+            assert torch.equal(g["reduce_grad"], grad), (r, dtype)
+            assert torch.equal(g["copy"], mine), (r, dtype)
+            assert torch.equal(g["copy_grad"], grads), (r, dtype)
+            assert torch.equal(g["gather"], torch.cat(
+                [inputs(dev, 0, dtype), inputs(dev, 1, dtype)], dim=-1))
+            assert torch.equal(g["gather_grad"], grad), (r, dtype)
+        # Per dtype: the reduce's forward, the copy's backward (numel
+        # each) and the gather's output (2 x numel).
+        assert got["stats"]["calls"] == 6
+        assert got["stats"]["bytes"] == sum(4 * numel * size
+                                            for size in (4, 2))

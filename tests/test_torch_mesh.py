@@ -6,7 +6,9 @@ numbers) equal the reference's (device ids of the 8 virtual CPU
 devices) for the same config.  A process without a process group is a
 mesh with every axis 1.  Four gloo ranks in TorchTrainer workers build
 a {data: 2, seq: 2} mesh: each axis's process group holds the ranks the
-layout says, and a shift along `seq` reaches the ring's next rank.
+layout says, and a shift along `seq` reaches the ring's next rank; the
+group over data and seq (the mesh without tensor) is the whole mesh
+and sums over all four.
 
 One cluster for the file (num_cpus=4, num_gpus=0), one fit; the pytest
 process never joins a process group.  Loops are defined inside the
@@ -167,6 +169,16 @@ def test_four_rank_mesh_groups_hold_the_layouts_ranks(cluster, tmp_path):
                 mesh.get_group("data")),
             "shifted": got.tolist(),
             "dm_names": tuple(mesh.device_mesh.mesh_dim_names),
+            # A group over every axis of more than one rank (here the
+            # mesh without tensor) is the whole mesh: no group of its own.
+            "data_seq_group": dist.get_process_group_ranks(
+                mesh.get_group(("seq", "data"))),
+            "kept": mesh.get_group(mesh.axes_but("tensor"))
+            is mesh.get_group(("data", "seq")) is dist.group.WORLD,
+            "summed": comm.all_reduce_(torch.tensor([float(rank)]),
+                                       mesh.get_group(("data", "seq")))
+            .item(),
+            "one_rank_axes": mesh.get_group(("tensor", "fsdp")),
         }
         with open(os.path.join(config["out"], f"rank{rank}.pkl"),
                   "wb") as f:
@@ -186,3 +198,6 @@ def test_four_rank_mesh_groups_hold_the_layouts_ranks(cluster, tmp_path):
         assert out["data"] == [s, s + 2] == sorted(out["data_group"])
         assert out["shifted"] == [float(2 * d + 1 - s)] * 3
         assert out["dm_names"] == pmesh.AXIS_ORDER
+        assert sorted(out["data_seq_group"]) == [0, 1, 2, 3]
+        assert out["kept"] and out["summed"] == 6.0
+        assert out["one_rank_axes"] is None

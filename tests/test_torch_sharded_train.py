@@ -1,9 +1,10 @@
-"""The port's ShardedTrainStep on data, seq and fsdp ranks against the
-JAX package's, on the CPU.
+"""The port's ShardedTrainStep on data, seq, fsdp and tensor ranks against
+the JAX package's, on the CPU.
 
 The reference runs `ray_tpu.train.train_state.ShardedTrainStep` in this
 process on the 8 virtual CPU devices, on meshes {seq: 2}, {data: 2},
-{data: 2, seq: 2}, {fsdp: 2} and {data: 2, fsdp: 2}; the port runs the
+{data: 2, seq: 2}, {fsdp: 2}, {data: 2, fsdp: 2}, {tensor: 2},
+{fsdp: 2, tensor: 2} and {data: 2, tensor: 2}; the port runs the
 same config (`TransformerConfig.tiny` in fp32, flash attention: its
 plain version on the CPU) on 2 or 4 gloo ranks in TorchTrainer workers,
 from the reference's initial state carried across with
@@ -31,11 +32,20 @@ equal to the replicated {data: 2} run's (a norm over one rank's blocks
 would not be); `prepare_pytree` with the model's logical axes,
 `shard_batch` over fsdp, and `reduce_scatter` / `all_gather` in a rank
 order that is not the group's.
-Also: `forward` under a seq mesh equals the reference's dense forward
+On tensor ranks also: each rank holds its half of every leaf with a
+heads, mlp or vocab dim (and of the embed dim too with fsdp), Adam's
+moments in the same layout, the norms bit-equal on every rank; losses
+and grad_norm equal to {data: 2}'s (a loss pair or norms' gradient
+summed over tensor would be t times off); the bytes of the model's
+all-reduces over `tensor` (`last_comm["tensor"]`) as the shapes count
+them; `prepare_pytree` placing tensor blocks and `shard_batch` giving
+both tensor ranks the same rows.
+Also: `forward` under a seq mesh and under tensor meshes (whole logits
+from vocabulary blocks) equals the reference's dense forward
 (tests/test_ring_pipeline.py:120-147); `get_mesh`, `prepare_pytree` and
-`shard_batch` on a 2-rank data mesh; a step on {fsdp: 2}; and
-NotImplementedError for tensor, expert and stage of more than one rank
-and for MoE on a mesh.
+`shard_batch` on a 2-rank data mesh; steps on {fsdp: 2} and
+{tensor: 2}; and NotImplementedError for expert and stage of more than
+one rank, tensor with seq, and MoE on a mesh.
 
 One cluster for the file (num_cpus=4, num_gpus=0) and one fit per mesh
 shape in a test run, behind module-scoped fixtures whose result the
@@ -62,7 +72,10 @@ tts = importlib.import_module(f"{PORT}.train.train_state")
 
 MESHES = {"seq2": {"seq": 2}, "data2": {"data": 2},
           "data2_seq2": {"data": 2, "seq": 2}, "fsdp2": {"fsdp": 2},
-          "data2_fsdp2": {"data": 2, "fsdp": 2}}
+          "data2_fsdp2": {"data": 2, "fsdp": 2}, "tensor2": {"tensor": 2},
+          "fsdp2_tensor2": {"fsdp": 2, "tensor": 2},
+          "data2_tensor2": {"data": 2, "tensor": 2}}
+TENSOR_MESHES = ["tensor2", "fsdp2_tensor2", "data2_tensor2"]
 STEPS = 3
 # (mask, remat policy, fused CE); "dots" is checked against "full" too.
 CASES = [(False, "full", False), (True, "full", False),
@@ -151,6 +164,7 @@ def _run_mesh(tmp_path_factory, name):
         mesh_mod = importlib.import_module(f"{port}.parallel.mesh")
         comm = importlib.import_module(f"{port}.parallel.comm")
         tr = importlib.import_module(f"{port}.train")
+        optim = importlib.import_module(f"{port}.train.optim")
         torch.set_num_threads(1)
         kw = dict(config["cfg"], dtype=torch.float32,
                   param_dtype=torch.float32)
@@ -195,10 +209,15 @@ def _run_mesh(tmp_path_factory, name):
                 "comm": {k: (dict(v) if isinstance(v, dict) else v)
                          for k, v in step.last_comm.items()}}
 
-        # forward under the mesh: global tokens in, global logits out.
+        # forward under the mesh: global tokens in, global logits out,
+        # from the params in the layout the model computes on (whole but
+        # on tensor ranks, their blocks there).
         cfg = tfm.TransformerConfig(**dict(kw, remat=False))
         params = ts.state_from_numpy(config["starts"][False, False], cfg,
                                      device="cpu")["params"]
+        params = optim.tree_map(
+            lambda t, s: s.shard(t), params,
+            ts.ShardedTrainStep(cfg, mesh, device="cpu").compute_shardings)
         with torch.no_grad(), mesh:
             res["forward"] = tfm.forward(
                 params, torch.from_numpy(config["tokens"]).long(),
@@ -241,6 +260,22 @@ def _run_mesh(tmp_path_factory, name):
             got = tr.prepare_pytree(tree, m, rules={})
             res["rules"] = (got["w"].tolist(), got["n"][0].tolist())
             res["raised"] = raised
+        if config["axes"] == {"tensor": 2}:
+            # The Train library's helpers on two tensor ranks: the tree
+            # placed by the model's logical axes is the step's blocks of
+            # rank 0's values; both ranks take every row.
+            m = tr.get_mesh({"tensor": 2})
+            rank = dist.get_rank()
+            cfg = tfm.TransformerConfig(**kw)
+            placed = tr.prepare_pytree(
+                tfm.init_params(cfg, 7 + rank, device="cpu"), m,
+                logical_axes=tfm.logical_axes(cfg))
+            want = flat(ts.ShardedTrainStep(cfg, m, device="cpu").shard(
+                tfm.init_params(cfg, 7, device="cpu")))
+            res["prepare"] = {k: (v.shape, bool(np.array_equal(v, want[k])))
+                              for k, v in flat(placed).items()}
+            res["shard"] = tr.shard_batch(
+                {"x": np.arange(8).reshape(4, 2)}, m)["x"].tolist()
         if config["axes"] == {"fsdp": 2}:
             # The Train library's helpers on two fsdp ranks: the tree
             # placed by the model's logical axes is the step's blocks of
@@ -317,14 +352,47 @@ def data2_fsdp2(request, tmp_path_factory):
     return _shared_mesh(request, tmp_path_factory, "data2_fsdp2")
 
 
-def _split(name):
-    """Whether the tiny model's leaf `name` has an embed dim (the one the
-    rules split over fsdp), and which dim that is."""
+@pytest.fixture(scope="module")
+def tensor2(request, tmp_path_factory):
+    return _shared_mesh(request, tmp_path_factory, "tensor2")
+
+
+@pytest.fixture(scope="module")
+def fsdp2_tensor2(request, tmp_path_factory):
+    return _shared_mesh(request, tmp_path_factory, "fsdp2_tensor2")
+
+
+@pytest.fixture(scope="module")
+def data2_tensor2(request, tmp_path_factory):
+    return _shared_mesh(request, tmp_path_factory, "data2_tensor2")
+
+
+def _split(name, logical="embed"):
+    """Whether the tiny model's leaf `name` has a dim of one of the
+    `logical` names (embed: the one the rules split over fsdp; "heads
+    mlp vocab": over tensor), and which dim that is."""
     axes = ttf.logical_axes(ttf.TransformerConfig.tiny())
     for k in name.split("/"):
         axes = axes[k]
-    return ("embed" in axes), (axes.index("embed") if "embed" in axes
-                               else None)
+    dims = [d for d, a in enumerate(axes) if a in logical.split()]
+    return bool(dims), (dims[0] if dims else None)
+
+
+def _tensor_bytes(axes, cfg=None):
+    """The bytes of the model's collectives over `tensor` in one step on
+    a rank of mesh `axes` (fp32): per layer, the two activation
+    all-reduces of the forward (after wo and w_down), the first of them
+    again in the checkpoint's re-run (which stops after the layer's last
+    saved tensor, before the MLP's all-reduce) and the two of the
+    backward (the gradients entering q/k/v and gate/up); the
+    embedding's and the LM head's dx; the cross-entropy's max and its
+    (sum of exponentials, target logit) pair per token."""
+    if axes.get("tensor", 1) == 1:
+        return 0
+    kw = _jcfg()
+    tokens = 4 // (axes.get("data", 1) * axes.get("fsdp", 1)) * 32
+    act = tokens * kw.hidden_size * 4
+    return act * (5 * kw.num_layers + 2) + tokens * 4 * 3
 
 
 def _check_steps(run, mask, policy, fused):
@@ -357,21 +425,29 @@ def _check_steps(run, mask, policy, fused):
     assert got["digest"] == full["digest"]
     # The collectives' bytes: on data and seq ranks one all-reduce in
     # flat buckets over the whole tree; on fsdp ranks a gather and a
-    # reduce-scatter of the split leaves (whole bytes), the replicated
-    # leaves' all-reduce over the mesh and, with data ranks, the blocks'
-    # over data.
+    # reduce-scatter of the split leaves (of their bytes in the compute
+    # layout: halved on tensor ranks where a leaf has a heads, mlp or
+    # vocab dim), the other leaves' all-reduce over the mesh without
+    # tensor and, with data ranks, the blocks' over data; on tensor
+    # ranks also the model's all-reduces over tensor.
     axes = ranks[0]["axes"]
     fsdp, data = axes.get("fsdp", 1), axes.get("data", 1)
-    n_split = sum(p.size for name, p in got["params"].items()
+    t = axes.get("tensor", 1)
+    compute = {name: p.size // (t if _split(name, "heads mlp vocab")[0]
+                                else 1)
+               for name, p in got["params"].items()}
+    n_split = sum(n for name, n in compute.items()
                   if fsdp > 1 and _split(name)[0])
-    n_rep = sum(p.size for p in got["params"].values()) - n_split
+    n_rep = sum(compute.values()) - n_split
+    others = data * fsdp * axes.get("seq", 1) > 1
     comm = got["comm"]
     assert comm["gather"]["bytes"] == comm["reduce_scatter"]["bytes"] \
         == 4 * n_split
-    assert comm["all_reduce"]["bytes"] == 4 * n_rep + (
+    assert comm["all_reduce"]["bytes"] == (4 * n_rep if others else 0) + (
         4 * n_split // fsdp if data > 1 else 0)
+    assert comm["tensor"]["bytes"] == _tensor_bytes(axes)
     assert comm["bytes"] == sum(comm[k]["bytes"] for k in (
-        "gather", "reduce_scatter", "all_reduce"))
+        "gather", "reduce_scatter", "all_reduce", "tensor"))
 
 
 @pytest.mark.parametrize("mask,policy,fused", CASES)
@@ -398,6 +474,94 @@ def test_fsdp2_steps_match_reference(fsdp2, mask, policy, fused):
 def test_data2_fsdp2_steps_match_reference(data2_fsdp2, mask, policy,
                                            fused):
     _check_steps(data2_fsdp2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("mask,policy,fused", CASES)
+def test_tensor2_steps_match_reference(tensor2, mask, policy, fused):
+    _check_steps(tensor2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("mask,policy,fused", CASES)
+def test_fsdp2_tensor2_steps_match_reference(fsdp2_tensor2, mask, policy,
+                                             fused):
+    _check_steps(fsdp2_tensor2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("mask,policy,fused", CASES)
+def test_data2_tensor2_steps_match_reference(data2_tensor2, mask, policy,
+                                             fused):
+    _check_steps(data2_tensor2, mask, policy, fused)
+
+
+@pytest.mark.parametrize("name", TENSOR_MESHES)
+def test_tensor_ranks_hold_their_blocks(name, request):
+    """Each rank holds, of every leaf with a heads, mlp or vocab dim, its
+    half along that dim (the block at its tensor coordinate of the
+    gathered params; with fsdp also its half of the embed dim), and
+    Adam's mu and nu in the same layout; the norms whole and bit-equal
+    on every rank."""
+    _, ranks, _ = request.getfixturevalue(name)
+    axes = ranks[0]["axes"]
+    for r, res in enumerate(ranks):
+        got = res[False, "full", False]
+        outer, t = divmod(r, 2)  # tensor is the inner axis here
+        f = outer if axes.get("fsdp", 1) > 1 else 0
+        for leaf, whole in got["params"].items():
+            block = got["blocks"][leaf]
+            tsplit, tdim = _split(leaf, "heads mlp vocab")
+            if not tsplit:
+                np.testing.assert_array_equal(block, whole)
+                np.testing.assert_array_equal(
+                    block, ranks[0][False, "full", False]["blocks"][leaf])
+                continue
+            n = whole.shape[tdim] // 2
+            want = np.take(whole, np.arange(t * n, (t + 1) * n), axis=tdim)
+            mu = np.take(got["whole_mu"][leaf],
+                         np.arange(t * n, (t + 1) * n), axis=tdim)
+            if axes.get("fsdp", 1) > 1:
+                _, edim = _split(leaf)
+                m = want.shape[edim] // 2
+                want = np.take(want, np.arange(f * m, (f + 1) * m),
+                               axis=edim)
+                mu = np.take(mu, np.arange(f * m, (f + 1) * m), axis=edim)
+            np.testing.assert_array_equal(block, want)
+            for moment in ("mu", "nu"):
+                assert got[moment][leaf].shape == block.shape, (leaf, moment)
+            np.testing.assert_array_equal(got["mu"][leaf], mu)
+        whole_bytes = sum(p.nbytes for p in got["params"].values())
+        block_bytes = sum(p.nbytes for p in got["blocks"].values())
+        share = 0.5 / (2 if axes.get("fsdp", 1) > 1 else 1)
+        assert block_bytes < whole_bytes * (share + 0.1)
+
+
+@pytest.mark.parametrize("name", TENSOR_MESHES)
+def test_tensor_grad_norm_equals_replicated_runs(name, request, data2):
+    """The same global batch on tensor ranks and on replicated data
+    ranks: the same losses and global gradient norms, within the
+    reference tolerances (a loss pair or the norms' gradients summed
+    over tensor, or a norm over one rank's blocks, would not be)."""
+    _, tensor_ranks, _ = request.getfixturevalue(name)
+    _, data_ranks, _ = data2
+    for case in CASES:
+        for (tl, tn), (dl, dn) in zip(tensor_ranks[0][case]["metrics"][:-1],
+                                      data_ranks[0][case]["metrics"][:-1]):
+            np.testing.assert_allclose(tl, dl, rtol=LOSS_RTOL)
+            np.testing.assert_allclose(tn, dn, rtol=NORM_RTOL)
+
+
+def test_train_helpers_on_two_tensor_ranks(tensor2):
+    """prepare_pytree places rank 0's tree by the model's logical axes
+    (the step's tensor blocks: half of each heads, mlp and vocab dim),
+    and shard_batch gives both tensor ranks every row."""
+    _, ranks, _ = tensor2
+    whole = ranks[0][False, "full", False]["params"]
+    for res in ranks:
+        for leaf, (shape, equal) in res["prepare"].items():
+            assert equal, leaf
+            split, dim = _split(leaf, "heads mlp vocab")
+            if split:
+                assert shape[dim] == whole[leaf].shape[dim] // 2, leaf
+        assert res["shard"] == [[0, 1], [2, 3], [4, 5], [6, 7]]
 
 
 @pytest.mark.parametrize("name", ["fsdp2", "data2_fsdp2"])
@@ -464,9 +628,10 @@ def test_train_helpers_on_two_fsdp_ranks(fsdp2):
         assert res["all_gather"] == [[1.0, 1.0], [0.0, 0.0]]
 
 
-@pytest.mark.parametrize("name", ["seq2", "data2_seq2"])
+@pytest.mark.parametrize("name", ["seq2", "data2_seq2"] + TENSOR_MESHES)
 def test_forward_under_seq_mesh_equals_dense(name, request):
-    """forward() under a seq-sharded mesh (ring_attention="auto")
+    """forward() under a seq-sharded mesh (ring_attention="auto"), and
+    under tensor meshes (each rank's blocks in, whole logits out),
     matches the reference's dense single-device forward, on every rank."""
     refs, ranks, tokens = request.getfixturevalue(name)
     start = refs[False, False][0]
@@ -492,16 +657,24 @@ def test_train_helpers_on_two_ranks(data2):
 
 
 def test_later_axes_and_moe_raise_on_a_mesh(data2):
-    """On two ranks: a step on {fsdp: 2} splits wq over fsdp; tensor,
-    expert and stage of two ranks, and MoE on a mesh, raise naming their
-    items; rules that map nothing place a tree replicated."""
+    """On two ranks: steps on {fsdp: 2} and {tensor: 2} split wq (over
+    fsdp, over tensor); expert and stage of two ranks, and MoE on a
+    mesh, raise naming their items, and so does the model under a mesh
+    of tensor with seq; rules that map nothing place a tree
+    replicated."""
     _, ranks, _ = data2
     res = ranks[0]
     raised = res["raised"]
-    assert set(raised) == {"tensor", "expert", "stage", "moe"}
+    assert set(raised) == {"expert", "stage", "moe"}
     assert res["fsdp_wq_spec"] == (("stage", "fsdp", "tensor"), True)
-    assert "6b, tensor parallelism" in raised["tensor"]
-    assert "sharding slice" in raised["tensor"]
+    assert res["tensor_wq_spec"] == (("stage", "fsdp", "tensor"), True)
+    cfg = ttf.TransformerConfig.tiny(dtype=torch.float32)
+    mesh = importlib.import_module(f"{PORT}.parallel.mesh")
+    sizes = {a: 1 for a in mesh.AXIS_ORDER} | {"tensor": 2, "seq": 2}
+    with mesh.Mesh(sizes, np.arange(4)), \
+            pytest.raises(NotImplementedError, match="6b, tensor with seq"):
+        ttf.loss_fn(ttf.init_params(cfg, 0, device="cpu"),
+                    {"tokens": torch.zeros((2, 9), dtype=torch.long)}, cfg)
     assert "pipeline slice" in raised["stage"]
     assert "expert-parallel" in raised["expert"]
     assert "expert-parallel" in raised["moe"]
@@ -509,16 +682,19 @@ def test_later_axes_and_moe_raise_on_a_mesh(data2):
 
 
 @pytest.mark.parametrize("axes,match", [
-    ({"fsdp": 2}, "sharding"), ({"tp": 2}, "sharding"),
+    ({"fsdp": 2}, None), ({"tp": 2}, None),
+    ({"tp": 2, "sp": 2}, "6b, tensor with seq"),
     ({"ep": 2}, "expert-parallel"), ({"stage": 1}, "pipeline")])
 def test_axes_dicts_for_later_slices_raise(axes, match):
-    """One process: an axes dict naming a later slice's axis raises
-    NotImplementedError.  fsdp is this slice's: {fsdp: 1} trains, and
-    {fsdp: 2}, like {data: 2}, is a dict of more than one device and so
-    no one-process mesh (ValueError)."""
+    """One process: an axes dict naming a later slice's axis, or tensor
+    with seq, raises NotImplementedError.  fsdp and tensor are ported:
+    {fsdp: 1} and {tensor: 1} train, and {fsdp: 2} or {tp: 2}, like
+    {data: 2}, is a dict of more than one device and so no one-process
+    mesh (ValueError)."""
     cfg = ttf.TransformerConfig.tiny(dtype=torch.float32)
-    if "fsdp" in axes:
-        step = tts.ShardedTrainStep(cfg, mesh={"fsdp": 1}, device="cpu")
+    if match is None:
+        step = tts.ShardedTrainStep(cfg, mesh={a: 1 for a in axes},
+                                    device="cpu")
         assert not step.sharded
         state, m = step.step(step.init(0), {
             "tokens": np.zeros((2, 9), dtype=np.int32)})

@@ -13,12 +13,15 @@ and the model's `logical_axes` (tiny, MoE, scan_layers=False) against
 the reference's trees; tests/test_7b_partition.py:31 on `meta` tensors
 (Llama-2-7B widths under {fsdp: 8}, per-rank bytes of params and
 moments under a quarter of the whole, each leaf's block the shape of
-the reference's shard; nothing is allocated); and the raises of what
-this slice does not port: tensor, expert and stage of more than one
-rank, fsdp with seq, and `load_pytree(shardings=...)`.
+the reference's shard; nothing is allocated); the step's layouts on
+tensor meshes (the compute layout without fsdp, gathers over chosen
+axes) and `Mesh.get_group` over several axes; and the raises of what
+the port does not place: expert and stage of more than one rank,
+tensor with seq, fsdp with seq, and `load_pytree(shardings=...)`.
 """
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -78,33 +81,29 @@ def test_mesh_axis_used_once():
 
 
 def test_shard_tree_places_params():
-    """The reference places wq on {fsdp: 4, tensor: 2}; the port's
-    tensor parallelism is a later item, so the same mesh raises naming
-    it, and {fsdp: 4} places: each rank's block is the shard JAX puts on
-    its device."""
+    """The reference's case: wq placed on {fsdp: 4, tensor: 2}, split
+    (rows over fsdp, columns over tensor); each port rank's block is the
+    shard JAX puts on its device.  Then {fsdp: 4}, rows only."""
     rng = np.random.default_rng(0)
     params = {"wq": rng.standard_normal((64, 128)).astype(np.float32),
               "bias": rng.standard_normal((128,)).astype(np.float32)}
-    jm, pms = _meshes({"fsdp": 4, "tensor": 2}, 8)
-    jout = jsh.shard_tree(jax.tree.map(jnp.asarray, params), jm)
-    assert not jout["wq"].sharding.is_fully_replicated
     whole = {k: torch.from_numpy(v) for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="6b, tensor parallelism"):
-        psh.shard_tree(whole, pms[0])
-
-    jm, pms = _meshes({"fsdp": 4}, 4)
-    jout = jsh.shard_tree(jax.tree.map(jnp.asarray, params), jm)
     logical = psh.infer_logical_axes(whole)
-    for pm in pms:
-        out = psh.shard_tree(whole, pm)
-        assert tuple(out["wq"].shape) == (16, 128)
-        assert out["bias"] is whole["bias"]  # 1-d: replicated
-    for name in params:
-        layouts = [psh.named_sharding(pm, logical[name]) for pm in pms]
-        assert tuple(layouts[0].spec) == tuple(jout[name].sharding.spec)
-        assert layouts[0].is_fully_replicated == \
-            jout[name].sharding.is_fully_replicated
-        _blocks_match(jout[name], jm, layouts, whole[name])
+    for axes, n, shape in (({"fsdp": 4, "tensor": 2}, 8, (16, 64)),
+                           ({"fsdp": 4}, 4, (16, 128))):
+        jm, pms = _meshes(axes, n)
+        jout = jsh.shard_tree(jax.tree.map(jnp.asarray, params), jm)
+        assert not jout["wq"].sharding.is_fully_replicated
+        for pm in pms:
+            out = psh.shard_tree(whole, pm)
+            assert tuple(out["wq"].shape) == shape
+            assert out["bias"] is whole["bias"]  # 1-d: replicated
+        for name in params:
+            layouts = [psh.named_sharding(pm, logical[name]) for pm in pms]
+            assert tuple(layouts[0].spec) == tuple(jout[name].sharding.spec)
+            assert layouts[0].is_fully_replicated == \
+                jout[name].sharding.is_fully_replicated
+            _blocks_match(jout[name], jm, layouts, whole[name])
 
 
 def test_data_sharding_batch_axis():
@@ -174,7 +173,9 @@ def test_logical_axes_match_reference(kw):
 
 @pytest.mark.parametrize("axes,n", [({"fsdp": 4}, 4),
                                     ({"data": 2, "fsdp": 4}, 8),
-                                    ({"data": 2, "seq": 2}, 4)])
+                                    ({"data": 2, "seq": 2}, 4),
+                                    ({"fsdp": 4, "tensor": 2}, 8),
+                                    ({"data": 2, "fsdp": 2, "tensor": 2}, 8)])
 def test_tree_shardings_match_reference(axes, n):
     """The model's tree of layouts: specs equal to the reference's
     NamedShardings', and each rank's block of each tiny param the shard
@@ -271,12 +272,14 @@ def _tensor_leaves(tree):
 
 
 @pytest.mark.parametrize("axes,match", [
-    ({"tensor": 2}, "6b, tensor parallelism"), ({"expert": 2}, "6d"),
+    ({"tensor": 2, "seq": 2}, "6b, tensor with seq"), ({"expert": 2}, "6d"),
     ({"stage": 2}, "6c")])
 def test_later_axes_raise_naming_their_items(axes, match):
-    """Placing a tree, a step, on a mesh with tensor, expert or stage of
-    more than one rank raises NotImplementedError naming its item."""
-    mesh = pmesh.build_mesh(axes=axes, devices=[0, 1])
+    """Placing a tree, a step, on a mesh with expert or stage of more
+    than one rank, or with tensor and seq both, raises
+    NotImplementedError naming its item."""
+    mesh = pmesh.build_mesh(axes=axes,
+                            devices=list(range(math.prod(axes.values()))))
     with pytest.raises(NotImplementedError, match=match):
         psh.shard_tree({"w": torch.zeros(4, 4)}, mesh)
     with pytest.raises(NotImplementedError, match=match):
@@ -298,8 +301,10 @@ def test_fsdp_with_seq_raises():
 
 
 def test_params_split_over_fsdp_only():
+    """Rules that split a param over another axis than fsdp and tensor
+    raise."""
     mesh = pmesh.build_mesh(axes={"data": 2}, devices=[0, 1])
-    with pytest.raises(ValueError, match="fsdp only"):
+    with pytest.raises(ValueError, match="fsdp and tensor only"):
         tts.ShardedTrainStep(ttf.TransformerConfig.tiny(), mesh,
                              device="cpu", rules=(("embed", "data"),))
 
@@ -314,3 +319,73 @@ def test_sharded_restore_raises(tmp_path):
     path = tck.save_pytree({"w": torch.ones(4)}, str(tmp_path))
     with pytest.raises(NotImplementedError, match="6b, sharded restore"):
         tck.load_pytree(path, shardings={"w": None})
+
+
+# -- the step's layouts on a tensor mesh --------------------------------------
+
+
+def test_step_layouts_on_a_tensor_mesh():
+    """On {fsdp: 2, tensor: 2} (4 ranks laid out in this process): each
+    leaf's layout at rest is the rules' (heads, mlp and vocab over
+    tensor, embed over fsdp), the compute layout is it without fsdp, and
+    each rank's block at rest is the block at its fsdp coordinate of its
+    compute block; gathering a dim split over (fsdp, tensor) over fsdp
+    alone raises (no contiguous block)."""
+    cfg = ttf.TransformerConfig.tiny(dtype=torch.float32)
+    pm = pmesh.build_mesh(axes={"fsdp": 2, "tensor": 2},
+                          devices=list(range(4)))
+    whole = ttf.init_params(cfg, 0, device="cpu")
+    logical = ttf.logical_axes(cfg)
+    for r in range(4):
+        mesh = pmesh.Mesh(pm.shape, pm.ranks, rank=r)
+        f, t = divmod(r, 2)
+        ts = tts.ShardedTrainStep(cfg, mesh, device="cpu")
+        assert ts.sharded
+        for path in (("tok_embed",), ("blocks", "wq"), ("blocks", "wo"),
+                     ("blocks", "w_down"), ("blocks", "attn_norm")):
+            rest, comp, axes, w = (ts.param_shardings, ts.compute_shardings,
+                                   logical, whole)
+            for k in path:
+                rest, comp, axes, w = rest[k], comp[k], axes[k], w[k]
+            assert tuple(comp.spec) == tuple(
+                None if a == "fsdp" else a for a in rest.spec)
+            block, cblock = rest.shard(w), comp.shard(w)
+            for d, name in enumerate(axes):
+                if name in ("heads", "mlp", "vocab"):
+                    n = w.shape[d] // 2
+                    assert torch.equal(cblock, w.narrow(d, t * n, n))
+                if name == "embed":
+                    n = cblock.shape[d] // 2
+                    assert torch.equal(block, cblock.narrow(d, f * n, n))
+            if "embed" not in axes:
+                assert block is w and cblock is w
+    mesh = pmesh.Mesh(pm.shape, pm.ranks, rank=0)
+    with pytest.raises(ValueError, match="no contiguous block"):
+        psh.NamedSharding(mesh, (("fsdp", "tensor"),)).gather(
+            torch.zeros(2), ("fsdp",))
+    assert mesh.get_group(("fsdp", "tensor")) is None  # no process group
+    assert mesh.axes_but("tensor") == ("data", "stage", "fsdp", "seq",
+                                       "expert")
+
+
+@pytest.mark.parametrize("rules", [
+    (("heads", "tensor"),),
+    (("heads", "tensor"), ("mlp", "tensor")),
+    (("embed", "tensor"), ("heads", "tensor"), ("mlp", "tensor"),
+     ("vocab", "tensor"))], ids=["mlp_vocab_whole", "vocab_whole",
+                                 "embed_over_tensor"])
+def test_tensor_rules_must_split_heads_mlp_and_vocab(rules):
+    """On {tensor: 2}, rules that leave a heads, mlp or vocab dim whole,
+    or split another dim over tensor, raise when the step is made, and
+    the model raises on the blocks they cut (it would sum a whole MLP
+    twice, or take the log-sum-exp of two whole vocabularies)."""
+    cfg = ttf.TransformerConfig.tiny(dtype=torch.float32)
+    pm = pmesh.build_mesh(axes={"tensor": 2}, devices=[0, 1])
+    with pytest.raises(ValueError, match="tensor-parallel model"):
+        tts.ShardedTrainStep(cfg, pm, device="cpu", rules=rules)
+    mesh = pmesh.Mesh(pm.shape, pm.ranks, rank=0)
+    params = psh.shard_tree(ttf.init_params(cfg, 0, device="cpu"), mesh,
+                            rules, ttf.logical_axes(cfg))
+    with mesh, pytest.raises(ValueError, match="tensor-parallel model"):
+        ttf.loss_fn(params, {"tokens": torch.zeros((2, 9),
+                                                   dtype=torch.long)}, cfg)
