@@ -132,7 +132,13 @@ Phases, each of which raises (exit code != 0) if it fails:
      torch_trace of the idle actor, which must say it recorded no CUDA
      event, then one while it decodes, taken through the control plane's
      profile op, that names the paged decode kernel (the actor's
-     engine and its profiler sessions share one thread);
+     engine and its profiler sessions share one thread); a plain
+     num_gpus=1 actor that names no thread (GraphReplayer: each call
+     replays a captured graph), traced twice while a driver thread keeps
+     calling it, each trace within its bound and holding kernel events,
+     then a trace during one long call answering "profile failed: the
+     device thread did not come free within 4 s" in time, its start
+     never run, the actor answering its next call;
      shutdown() leaving no worker and the card's used memory at the
      driver's own.  `--phase runtime` runs the card, the build, [main]
      and this phase alone;
@@ -222,7 +228,14 @@ Phases, each of which raises (exit code != 0) if it fails:
      of params, mu and nu half of {fsdp: 1}'s for every leaf with an
      embed dim (the norms whole), flash launches per rank per step
      32 / 16 / 16; printed: ms per step, the gathers', reduce-scatters'
-     and all-reduces' bytes and seconds, each rank's peak memory.
+     and all-reduces' bytes and seconds, each rank's peak memory.  Then
+     the sharded restore: the state gathered whole, saved by rank 0 with
+     save_pytree, and each rank's blocks restored onto the card with
+     load_pytree(shardings=ShardedTrainStep.state_shardings(...)): every
+     leaf bit-equal to the rank's live block, the bytes of params, mu
+     and nu restored equal to those the rank holds, its resident host
+     memory's growth during the restore (VmRSS, sampled) below the size
+     of tensors.pt; printed: the gather's, save's and restore's seconds.
      `--phase fsdp` runs the card, the build and this phase alone;
  16. tensor parallelism on the port's runtime (`[tensor]`, after
      [fsdp]): the same model, batch and recipe from seed 0 on
@@ -239,7 +252,8 @@ Phases, each of which raises (exit code != 0) if it fails:
      kernels on 7-head blocks), the calls and bytes of the model's
      all-reduces over `tensor` per rank per step as counted from the
      shapes; printed: ms per step, the collectives' bytes and seconds
-     by kind, each rank's peak memory.  `--phase tensor` runs the card,
+     by kind, each rank's peak memory; the sharded restore as in
+     [fsdp], on the tensor blocks.  `--phase tensor` runs the card,
      the build and this phase alone.
 
 The last lines: a JSON object of the kernels, the card's name and power
@@ -2747,6 +2761,134 @@ class EngineServer:
                     peak=torch.cuda.max_memory_allocated())
 
 
+class GraphReplayer:
+    """A plain num_gpus=1 actor (max_concurrency 1, names no thread):
+    each method call replays a captured CUDA graph of 8 bf16 2,048^2
+    matmuls.  Its worker names the actor loop's thread as the profile
+    runner, so torch_trace starts and stops between two calls."""
+
+    def __init__(self):
+        a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+        outs = [torch.empty_like(a) for _ in range(8)]
+
+        def body():
+            x = a
+            for o in outs:
+                torch.matmul(x, a, out=o)
+                x = o
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            body()
+        torch.cuda.synchronize()
+        self.keep = (a, outs)
+
+    def replay(self, n):
+        for _ in range(n):
+            self.graph.replay()
+        torch.cuda.synchronize()
+        return n
+
+    def hold(self, seconds):
+        """Replays for `seconds`: one long call on the actor's thread."""
+        n, end = 0, time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            n += self.replay(4)
+        return n
+
+    def set_bound(self, seconds):
+        from ray_tpu_torch.core import runtime
+
+        runtime.PROFILE_BOUND_S = seconds
+
+    def state(self):
+        from ray_tpu_torch.core import runtime
+
+        return dict(worker=rtt.get_runtime_context().worker_id,
+                    runner=type(runtime._profile_runner).__name__,
+                    bound=runtime.PROFILE_BOUND_S,
+                    profiling=torch.autograd._profiler_enabled())
+
+
+# A GraphReplayer's bound for the long call's trace (its process only),
+# and the call's length: the trace must answer before the call ends.
+REPLAYER_BOUND_S = 4.0
+REPLAYER_HOLD_S = 9.0
+
+
+def trace_plain_gpu_actor(tag, drv, smi):
+    """The profiler pin: a GraphReplayer traced twice through the control
+    plane while a driver thread keeps calling it, each reply a trace that
+    holds kernel events; then a trace taken during one long call answers
+    "profile failed: ..." within its bound, the withdrawn start never
+    runs, and the actor answers its next call."""
+    actor = rtt.remote(num_gpus=1)(GraphReplayer).remote()
+    st = rtt.get(actor.state.remote(), timeout=300)
+    check(st["runner"] == "ThreadRunner" and not st["profiling"],
+          f"{tag} the plain GPU actor's worker named no runner: {st}")
+    bound = st["bound"]
+
+    def trace(timeout_s):
+        t0 = time.perf_counter()
+        out = drv.core.client.call(
+            {"op": "profile_worker", "worker_hex": st["worker"],
+             "kind": "torch_trace", "duration_s": 0.5,
+             "timeout_s": timeout_s}, timeout=timeout_s + 30)
+        return out, time.perf_counter() - t0
+
+    stop, calls = threading.Event(), []
+
+    def load():
+        while not stop.is_set():
+            calls.append(rtt.get(actor.replay.remote(4), timeout=300))
+
+    th = threading.Thread(target=load, daemon=True)
+    th.start()
+    try:
+        for i in range(2):
+            # The reply's own bound: the window, a start and a stop.
+            out, took = trace(0.5 + 2 * bound + 15)
+            ok = isinstance(out, str) and os.path.isfile(out)
+            kernels = 0
+            if ok:
+                with open(out) as f:
+                    kernels = sum(e.get("cat") == "kernel"
+                                  for e in json.load(f)["traceEvents"])
+            print(f"{tag} plain GPU actor, trace {i + 1} (0.5 s while a "
+                  f"driver thread calls it): {took:.2f} s (bound "
+                  f"{0.5 + 2 * bound:.1f} s + the export), {kernels} kernel "
+                  f"events; {out if not ok else os.path.basename(out)}")
+            check(ok and kernels > 0 and took < 0.5 + 2 * bound + 15,
+                  f"{tag} trace {i + 1} of the plain GPU actor gave {out!r}")
+    finally:
+        stop.set()
+        th.join(600)
+    check(not th.is_alive() and calls, f"{tag} the actor's calls stalled")
+    rtt.get(actor.set_bound.remote(REPLAYER_BOUND_S), timeout=60)
+    held = actor.hold.remote(REPLAYER_HOLD_S)
+    time.sleep(1.0)  # the long call has begun on the actor's thread
+    out, took = trace(REPLAYER_BOUND_S + 15)
+    print(f"{tag} a trace during one {REPLAYER_HOLD_S:.0f} s call: "
+          f"{took:.2f} s (bound {REPLAYER_BOUND_S:.0f} s): {out!r}")
+    check(out == ("profile failed: the device thread did not come free "
+                  f"within {REPLAYER_BOUND_S:g} s")
+          and took < REPLAYER_BOUND_S + 3,
+          f"{tag} the trace during a long call was not refused in time")
+    n = rtt.get(held, timeout=300)
+    st = rtt.get(actor.state.remote(), timeout=60)
+    check(not st["profiling"] and rtt.get(actor.replay.remote(1),
+                                          timeout=60) == 1,
+          f"{tag} the withdrawn start ran, or the actor stopped answering")
+    print(f"{tag} then the long call ended ({n} replays), no profiler "
+          f"session in the actor, its next call answered; on {smi}")
+    rtt.kill(actor)
+
+
 def process_alive(pid: int) -> bool:
     try:
         return psutil.Process(pid).status() != psutil.STATUS_ZOMBIE
@@ -2929,7 +3071,15 @@ def phase_runtime(smi, prompts, max_new, streams_main, launches_main,
         for k in SERVE_KERNELS:
             check(out["launches"][k] > 0, f"{k} never ran in the actor")
         check(hits > 0, "the trace does not name the paged decode kernel")
+        # The card's one GPU goes to the next actor: dropping the handle
+        # does not end this one.
+        rtt.kill(actor)
         del actor
+        deadline = time.time() + 60
+        while rtt.available_resources().get("GPU", 0) < 1:
+            check(time.time() < deadline, "the killed actor kept its GPU")
+            time.sleep(0.1)
+        trace_plain_gpu_actor(tag, drv, smi)
         for w in drv.control.workers.values():
             if w.pid and w.kind != "driver":
                 worker_pids.add(w.pid)
@@ -4357,6 +4507,80 @@ def fsdp_flat(tree, prefix=""):
     return out
 
 
+def vm_rss() -> int:
+    """This process's resident host memory in bytes (/proc/self/status
+    VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def sharded_restore(ts, state, config, rank, dev):
+    """The state gathered whole (gather_state) and saved by rank 0
+    (save_pytree into config["dir"]), then each rank's blocks restored
+    from the file onto the card (load_pytree(shardings=
+    ts.state_shardings(state))), its resident host memory sampled every
+    5 ms meanwhile: the save's and the restore's seconds, the growth of
+    VmRSS, the file's bytes, the bytes of params, mu and nu restored, and
+    whether every leaf equals the live block bit for bit (NamedTuple for
+    NamedTuple)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.train import checkpoint as tck
+
+    path = os.path.join(config["dir"], f"ckpt_{config['name']}")
+    layout = ts.state_shardings(state)
+    t0 = time.perf_counter()
+    whole = ts.gather_state(state)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    save_s = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        tck.save_pytree(whole, path)
+        save_s = time.perf_counter() - t0
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    file_bytes = os.path.getsize(os.path.join(path, tck.TENSORS))
+    rss0 = peak = vm_rss()
+    done = threading.Event()
+
+    def sample():
+        nonlocal peak
+        while not done.is_set():
+            peak = max(peak, vm_rss())
+            time.sleep(0.005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    back = tck.load_pytree(path, shardings=layout, map_location=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    done.set()
+    sampler.join()
+    peak = max(peak, vm_rss())
+    (sa, ta), (sb, tb) = tck.flatten_pytree(back), tck.flatten_pytree(state)
+    same = sa == sb and ta.keys() == tb.keys() and all(
+        x.dtype == tb[k].dtype and x.device == tb[k].device
+        and torch.equal(x, tb[k]) for k, x in ta.items())
+    adam = back["opt_state"][1][0]
+    restored = sum(t.nbytes for tree in (back["params"], adam.mu, adam.nu)
+                   for t in fsdp_flat(tree).values())
+    leaves = len(ta)
+    del back, adam, ta, tb
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(path)
+    return dict(gather_s=gather_s, save_s=save_s, restore_s=restore_s,
+                rss_growth=peak - rss0, file_bytes=file_bytes,
+                restored=restored, same=same, leaves=leaves)
+
+
 def split_train_loop(config):
     """The 0.9B model on the mesh config["axes"] (every rank passes the
     same global batch; fsdp or tensor ranks): init(0); the step-1
@@ -4439,13 +4663,17 @@ def split_train_loop(config):
                                 f"update_{config['name']}.pt"))
     del whole, start
     stage("end")
+    restore = None
+    if mesh.axis_size(next(iter(config["axes"]))) > 1:
+        restore = sharded_restore(ts, state, config, rank, dev)
+        stage("restore")
     axis = next(iter(config["axes"]))
     out = dict(
         rank=rank, device=str(dev), mesh=dict(mesh.shape), losses=losses,
         grad_norm=grad_norm, warm_ms=warm_ms, ms=ms, comm=comm,
         tensor_calls=tensor_calls, stages=stages,
         launches={n: kern.launches for n, kern in flash.items()},
-        peak=peak, held=held, digest=digest,
+        peak=peak, held=held, digest=digest, restore=restore,
         transport=(tcomm.transport(mesh.get_group(axis), dev)
                    if mesh.axis_size(axis) > 1 else "none"),
         layers=cfg.num_layers, config=name, batch=B, seq=S)
@@ -4493,7 +4721,38 @@ def report_split_train(tag, store, name, n, smi):
     check(len({r["digest"] for r in ranks}) == 1
           and all(r["losses"] == ranks[0]["losses"] for r in ranks),
           f"{tag} {name}: the ranks' gathered params or losses differ")
+    if n > 1:
+        report_restore(tag, name, ranks, smi)
     return ranks
+
+
+def report_restore(tag, name, ranks, smi):
+    """The sharded restore of a two-rank run (sharded_restore): every
+    leaf bit-equal to the rank's live block, the bytes of params, mu and
+    nu restored equal to the rank's own held bytes, and the growth of
+    the rank's resident host memory during the restore below the size of
+    the whole tensors.pt."""
+    for res in ranks:
+        r = res["restore"]
+        held = sum(sum(v) for v in res["held"].values())
+        save = (f"gathered in {r['gather_s']:.2f} s, saved whole by rank 0 "
+                f"in {r['save_s']:.2f} s, " if r["save_s"] is not None
+                else f"gathered in {r['gather_s']:.2f} s, ")
+        print(f"{tag} {name} rank {res['rank']} sharded restore: {save}"
+              f"tensors.pt {r['file_bytes']:,} B; its blocks restored onto "
+              f"{res['device']} in {r['restore_s']:.2f} s (load_pytree("
+              f"shardings=...), warm page cache): params + mu + nu "
+              f"{r['restored']:,} B against {held:,} B held, {r['leaves']} "
+              f"leaves bit-equal to the live blocks: {r['same']}; VmRSS "
+              f"grew {r['rss_growth'] / 2**20:.1f} MiB at most during the "
+              f"restore; on {smi}")
+        check(r["same"], f"{tag} {name} rank {res['rank']}: a restored "
+              "block differs from the live one")
+        check(r["restored"] == held, f"{tag} {name} rank {res['rank']}: "
+              f"restored {r['restored']:,} B, holds {held:,} B")
+        check(r["rss_growth"] < r["file_bytes"],
+              f"{tag} {name} rank {res['rank']}: host memory grew by the "
+              "whole checkpoint or more during the restore")
 
 
 def check_split(tag, store, runs, smi, kind, names):

@@ -4979,10 +4979,15 @@ class ControlServer:
         """Ask a live worker for a profile; the reply resolves a
         Deferred so the CALLER's connection thread is never blocked (its
         other in-flight control calls proceed during a long trace).
-        kind: 'stack' (all-thread dump) | 'torch_trace' (Chrome trace path)."""
+        kind: 'stack' (all-thread dump) | 'torch_trace' (Chrome trace path).
+        By default the wait outlasts a torch_trace's own bound (the
+        window, a start and a stop of PROFILE_BOUND_S each, the export)."""
+        from ray_tpu_torch.core.runtime import PROFILE_BOUND_S
+
         worker_hex = msg["worker_hex"]
         timeout = float(msg.get("timeout_s", 0) or
-                        (float(msg.get("duration_s", 2.0)) + 30.0))
+                        (float(msg.get("duration_s", 2.0))
+                         + 2 * PROFILE_BOUND_S + 30.0))
         with self.lock:
             w = self.workers.get(worker_hex)
             if w is None or w.conn is None or w.state == "dead":

@@ -77,9 +77,11 @@ def gpu_worker_env(env: dict) -> dict:
     from a thread of its own while another thread replays CUDA graphs
     hung with the teardown on and recorded kernels with it off; the
     runtime's torch_trace also starts and stops its sessions on the
-    thread that replays, where one is named (runtime.set_profile_runner).
-    PyTorch turns the teardown off itself when it knows of CUDA graphs
-    (torch.compile's), for the same reason."""
+    thread that replays, where one is named (runtime.set_profile_runner;
+    a worker that runs its tasks on one thread names it by default), and
+    bounds both (runtime.PROFILE_BOUND_S).  PyTorch turns the teardown
+    off itself when it knows of CUDA graphs (torch.compile's), for the
+    same reason."""
     env.setdefault("TEARDOWN_CUPTI", "0")
     return env
 

@@ -11,11 +11,13 @@ submission over a dedicated connection).
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import os
 import re
 import threading
 import time
+from concurrent import futures
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutureTimeoutError
 from typing import Any, Dict, List, Optional, Sequence
@@ -100,42 +102,197 @@ def set_profile_runner(run) -> None:
     enters and leaves its profiler session on that thread, where a
     session taken from another thread while that one replays CUDA graphs
     can hang or record nothing (an H100, torch 2.11+cu128; PERF.md, the
-    trace probe).  serve/llm.py's LLMServer names its engine thread."""
+    trace probe).  serve/llm.py's LLMServer names its engine thread; a
+    GPU-class worker that runs its tasks on one thread names that thread
+    (default_profile_runner, core/worker.py)."""
     global _profile_runner
     _profile_runner = run
 
 
+def default_profile_runner(run) -> bool:
+    """Name `run` unless a runner is named already (an actor's __init__
+    may have named a thread of its own); whether it did."""
+    if _profile_runner is not None:
+        return False
+    set_profile_runner(run)
+    return True
+
+
+class ThreadRunner:
+    """A profile runner for a thread that takes work items one at a time:
+    `runner(fn)` queues fn and waits for it; the thread calls
+    `run_pending()` between two items."""
+
+    def __init__(self):
+        self._calls: collections.deque = collections.deque()
+        self._queued = threading.Event()
+
+    def __call__(self, fn):
+        fut: Future = Future()
+        self._calls.append((fn, fut))
+        self._queued.set()
+        return fut.result()
+
+    def run_pending(self, wait_s: float = 0.0) -> bool:
+        """Run the queued calls, once one is queued or `wait_s` has
+        passed; whether any was left queued before."""
+        self._queued.wait(wait_s)
+        self._queued.clear()
+        ran = bool(self._calls)
+        while self._calls:
+            fn, fut = self._calls.popleft()
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 (to the caller)
+                fut.set_exception(e)
+        return ran
+
+
+# How long a profiler session's start, and then its stop, may take on
+# the runner, the wait for its thread included (torch_trace).  A
+# process's first start spends 7-11 s setting up Kineto and CUPTI (an
+# H100, torch 2.11+cu128).
+PROFILE_BOUND_S = 20.0
+
+# Set from a session's start until its stop has returned on the runner
+# (or its start was withdrawn): one session at a time.
+_session_lock = threading.Lock()
+_session_open = False
+
+
+def _close_session() -> None:
+    global _session_open
+    with _session_lock:
+        _session_open = False
+
+
+def _on_runner(fn, run) -> Future:
+    """fn handed to the profile runner `run` from a thread of its own, so
+    that the request can stop waiting for it: its Future, which cancel()
+    withdraws (fn then never runs) until fn has begun."""
+    fut: Future = Future()
+
+    def body():
+        if fut.set_running_or_notify_cancel():
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 (read by the request)
+                fut.set_exception(e)
+
+    def hand():
+        try:
+            run(body)
+        except BaseException:  # noqa: BLE001
+            # The runner refused: its thread has left its loop (an
+            # LLMServer whose engine died), so no device work runs there
+            # any more and fn may run here.
+            if not (fut.running() or fut.done()):
+                body()
+
+    threading.Thread(target=hand, daemon=True, name="profile-step").start()
+    return fut
+
+
+def _session_thread() -> ThreadRunner:
+    """A profile runner on a daemon thread of the session's own (a session
+    starts and stops on one thread: PyTorch's CPU build crashes
+    otherwise); the thread ends once no session is open and it is idle."""
+    runner = ThreadRunner()
+
+    def loop():
+        while runner.run_pending(0.5) or _session_open:
+            pass
+
+    threading.Thread(target=loop, daemon=True,
+                     name="profile-session").start()
+    return runner
+
+
 def _torch_trace(out_dir: str, duration_s: float) -> str:
     """torch.profiler over a window of this process (the reference's
-    jax_trace kind): returns the path of the Chrome trace it writes.
+    jax_trace kind): returns the path of the Chrome trace it writes, or a
+    "profile failed: ..." string, within duration_s plus twice
+    PROFILE_BOUND_S plus the export.
 
     CUDA activity (CUPTI, process-wide: kernels of every thread, graph
     replays included) is recorded only when this process has already
     initialized CUDA itself; a profile must not be what opens a context
     on the card.  The session starts and stops on the thread named by
-    set_profile_runner, when one is; the window passes on this thread.
-    A process's first session spends 7-11 s setting up Kineto and CUPTI
-    before its window opens (an H100, torch 2.11+cu128), which holds up
-    the named thread that long.  GPU-class workers also run with
-    TEARDOWN_CUPTI=0 (node_manager.gpu_worker_env), so that CUPTI stays
-    set up between sessions.  A session that asked for CUDA activity and
-    holds no device event (an idle card) is not handed back as a trace:
-    it returns a "profile failed: ..." string that names the file it
-    wrote."""
+    set_profile_runner, when one is (else on a thread of its own); the
+    window passes on this thread.  A departure from the reference, whose
+    jax_trace traces from any thread: a session started or stopped on
+    another thread while the runner replays CUDA graphs could hang for
+    good (an H100, torch 2.11+cu128), so a start and a stop each have the
+    bound to begin and return on the runner, and this thread never waits
+    longer.  So a one-thread GPU worker (core/worker.py) cannot be traced
+    during a task longer than the bound: the start is withdrawn and never
+    runs.  A start that began late stops its session as soon as it
+    returns.  A stop stays queued until it has run (withdrawn, it would
+    leave the session recording for good): where a task began in the
+    window, the session records until that task ends.  Until a session's
+    stop has returned, every other torch_trace answers "profile failed:
+    ..." at once.  GPU-class workers also run with TEARDOWN_CUPTI=0
+    (node_manager.gpu_worker_env), so that CUPTI stays set up between
+    sessions.  A session that asked for CUDA activity and holds no device
+    event (an idle card) is not handed back as a trace: it returns a
+    "profile failed: ..." string that names the file it wrote."""
+    global _session_open
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    bound = PROFILE_BOUND_S
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_initialized():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    run = _profile_runner or (lambda fn: fn())
     prof = profile(activities=activities)
-    run(prof.start)
+    with _session_lock:
+        if _session_open:
+            return ("profile failed: a profiler session of this process is "
+                    "still open (its start or stop has not returned on the "
+                    "device thread)")
+        _session_open = True
     try:
-        time.sleep(duration_s)
-    finally:
-        run(prof.stop)
+        run = _profile_runner or _session_thread()
+        start = _on_runner(prof.start, run)
+    except BaseException:
+        _close_session()
+        raise
+
+    def stop_and_close():
+        try:
+            prof.stop()
+        finally:
+            _close_session()
+
+    def after_late_start(fut):
+        if fut.exception() is None:
+            _on_runner(stop_and_close, run)
+        else:
+            _close_session()
+
+    futures.wait([start], bound)
+    if start.cancel():
+        _close_session()
+        return (f"profile failed: the device thread did not come free "
+                f"within {bound:g} s")
+    if not start.done():
+        start.add_done_callback(after_late_start)
+        return (f"profile failed: the profiler's start did not return "
+                f"within {bound:g} s (the session stops when it does)")
+    e = start.exception()
+    if e is not None:
+        _close_session()
+        return f"profile failed: {type(e).__name__}: {e}"
+    time.sleep(duration_s)
+    stop = _on_runner(stop_and_close, run)
+    futures.wait([stop], bound)
+    if not stop.done():
+        return (f"profile failed: the profiler's stop did not return within "
+                f"{bound:g} s (it stays queued on the device thread)")
+    e = stop.exception()
+    if e is not None:
+        return f"profile failed: {type(e).__name__}: {e}"
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
     # A scan of the file, not prof.events(): parsing a decoding engine's

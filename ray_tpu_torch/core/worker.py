@@ -31,6 +31,8 @@ from ray_tpu_torch.core import rpc, serialization
 from ray_tpu_torch.core.exceptions import TaskError
 from ray_tpu_torch.core.ids import ObjectID
 from ray_tpu_torch.core.object_ref import ObjectRef
+from ray_tpu_torch.core import runtime as _runtime
+from ray_tpu_torch.core.node_manager import is_cpu_class
 from ray_tpu_torch.core.runtime import CoreClient, set_runtime
 from ray_tpu_torch.core.task_spec import ActorCreationSpec, KwargsMarker, TaskSpec
 
@@ -87,6 +89,10 @@ class WorkerRuntime:
         self._actor_instance: Any = None
         self._actor_is_async = False
         self._actor_hex: str = ""
+        self._gpu_class = not is_cpu_class(env_key)
+        # The profile runner of the one thread that runs this worker's
+        # tasks, where it names one (_name_device_thread).
+        self._device_runner: Optional[_runtime.ThreadRunner] = None
         self._task_queue: "queue.Queue[TaskSpec]" = queue.Queue()
         self._cancelled_pool: set = set()  # task hexes cancelled while queued
         self._exec_pool: Optional[Any] = None
@@ -783,14 +789,33 @@ class WorkerRuntime:
                 q = getattr(self, "_pool_queue", None)
                 if q is None:
                     q = queue.Queue()
+                    self._name_device_thread()
                     threading.Thread(target=self._pool_exec_loop,
                                      args=(q,), name="task-exec",
                                      daemon=True).start()
                     self._pool_queue = q
         q.put(spec)
 
+    def _name_device_thread(self):
+        """On a GPU-class worker, name the one thread that runs its tasks
+        (the task loop, or the actor loop of a max_concurrency=1 actor
+        without concurrency groups or async methods) as the profile
+        runner, unless the actor named a thread of its own: torch_trace
+        then starts and stops its session there, between two tasks
+        (core/runtime.py _torch_trace)."""
+        if not self._gpu_class:
+            return
+        runner = _runtime.ThreadRunner()
+        if _runtime.default_profile_runner(runner):
+            self._device_runner = runner
+
+    def _run_device_calls(self):
+        if self._device_runner is not None:
+            self._device_runner.run_pending()
+
     def _pool_exec_loop(self, q: "queue.Queue[TaskSpec]"):
         while not self._exit_ev.is_set():
+            self._run_device_calls()
             try:
                 spec = q.get(timeout=0.2)
             except queue.Empty:
@@ -857,6 +882,8 @@ class WorkerRuntime:
             # pools themselves.  Without groups, the queue threads ARE
             # the executors.
             n = 1 if groups else max(1, spec.max_concurrency)
+            if not groups and n == 1 and not self._actor_is_async:
+                self._name_device_thread()
             for _ in range(n):
                 threading.Thread(target=self._actor_loop, name="actor-exec",
                                  daemon=True).start()
@@ -871,6 +898,7 @@ class WorkerRuntime:
 
     def _actor_loop(self):
         while not self._exit_ev.is_set():
+            self._run_device_calls()
             try:
                 spec = self._task_queue.get(timeout=0.2)
             except queue.Empty:

@@ -146,17 +146,19 @@ class NamedSharding:
             idx = idx * self.mesh.shape[a] + self.mesh.axis_index(a)
         return idx
 
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor `t`, a view of it."""
+        size = self.shard_shape(t.shape)
+        for d, axes in self.split_dims(t.dim()).items():
+            t = t.narrow(d, self._block(axes) * size[d], size[d])
+        return t
+
     def shard(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole tensor `t`, a tensor of its own
         (so the whole can be freed); `t` itself when nothing splits."""
-        split = self.split_dims(t.dim())
-        if not split:
+        if not self.split_dims(t.dim()):
             return t
-        size = self.shard_shape(t.shape)
-        out = t
-        for d, axes in split.items():
-            out = out.narrow(d, self._block(axes) * size[d], size[d])
-        return out.clone(memory_format=torch.contiguous_format)
+        return self.block(t).clone(memory_format=torch.contiguous_format)
 
     def _walk(self, ndim: int, axes: Optional[Sequence[str]]):
         """(dim, its split axes among `axes`) for each split dim; None:

@@ -31,11 +31,15 @@ the reference's (`_resolve_ckpt_path`).
 from __future__ import annotations
 
 import json
+import mmap
 import os
+import re
 import shutil
+import struct
 import tempfile
 import threading
 import time
+import zipfile
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -132,6 +136,14 @@ def _flatten(node: Any, path: str, tensors: Dict[str, Any]) -> Dict:
         return {"value": node}
     raise TypeError(f"cannot checkpoint a {type(node).__name__} at "
                     f"{path!r}")
+
+
+def flatten_pytree(tree: Any):
+    """(structure, {path: tensor}) of `tree` as save_pytree writes them
+    (tree.json's structure, NamedTuples by name and fields; numpy leaves
+    as tensors): two trees are the same where both parts are."""
+    tensors: Dict[str, torch.Tensor] = {}
+    return _flatten(tree, "", tensors), tensors
 
 
 def _rebuild(spec: Dict, tensors: Dict[str, torch.Tensor], like: Any,
@@ -236,8 +248,7 @@ def save_pytree(tree: Any, directory: str, *, step: Optional[int] = None,
     under `directory` (`step_<step>` below it when step is given)."""
     path = _resolve_ckpt_path(directory, step)
     _check_target(path, force)
-    tensors: Dict[str, torch.Tensor] = {}
-    spec = _flatten(tree, "", tensors)
+    spec, tensors = flatten_pytree(tree)
     _write(path, spec, {k: _own_storage(t) for k, t in tensors.items()},
            force)
     return path
@@ -284,8 +295,7 @@ def save_pytree_async(tree: Any, directory: str, *,
     checkpoint."""
     path = _resolve_ckpt_path(directory, step)
     _check_target(path, force)
-    tensors: Dict[str, torch.Tensor] = {}
-    spec = _flatten(tree, "", tensors)
+    spec, tensors = flatten_pytree(tree)
     snapshot = {k: _host_copy(t) for k, t in tensors.items()}
     handle = AsyncSave(path)
     handle._thread = threading.Thread(
@@ -301,23 +311,141 @@ def load_pytree(path: str, *, target: Any = None, shardings: Any = None,
     tensors on `map_location` (torch.load's, e.g. "cuda"; None: the
     device each was saved from, the CPU for save_pytree_async's host
     copies).  With `target`, the checkpoint must have its structure,
-    and NamedTuples take its types."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_pytree(shardings=...): restoring onto a sharded layout "
-            "waits for ROADMAP Queue A item 6b, sharded restore; load the "
-            "whole tree and cut it with ShardedTrainStep.shard_state")
+    and NamedTuples take its types.
+
+    With `shardings`, a tree of the checkpoint's structure (NamedTuples
+    included) holding a `NamedSharding` (parallel/sharding.py) or None
+    at each tensor and None at each other leaf, every tensor comes back
+    as this rank's block of it (`NamedSharding.block`; whole where its
+    layout is None or replicated), a tensor of its own on `map_location`
+    (a device; None: the CPU): the reference restores each array onto
+    its NamedSharding.  tensors.pt is opened with `torch.load(mmap=True)`,
+    which reads no tensor's bytes, and each block is read through a
+    mapping of its leaf's bytes alone (_block_reader); no rank talks to
+    another.  A dim that does not split raises
+    `shard_shape`'s ValueError, and a `shardings` tree that differs
+    from the checkpoint's structure a ValueError naming the first key
+    that differs."""
     with open(os.path.join(path, STRUCTURE)) as f:
         meta = json.load(f)
     if meta.get("format") != _FORMAT:
         raise ValueError(f"{path}: unknown checkpoint format "
                          f"{meta.get('format')!r}")
-    tensors = torch.load(os.path.join(path, TENSORS),
-                         map_location=map_location, weights_only=True)
+    if shardings is None:
+        tensors = torch.load(os.path.join(path, TENSORS),
+                             map_location=map_location, weights_only=True)
+    else:
+        tensors = torch.load(os.path.join(path, TENSORS), mmap=True,
+                             map_location="cpu", weights_only=True)
     if not isinstance(tensors, dict) or not all(
             isinstance(t, torch.Tensor) for t in tensors.values()):
         raise ValueError(f"{path}/{TENSORS} is not a flat dict of tensors")
+    if shardings is not None:
+        blocks: Dict[str, torch.Tensor] = {}
+        with open(os.path.join(path, TENSORS), "rb") as f:
+            _read_blocks(meta["tree"], shardings, _block_reader(f, tensors),
+                         blocks, torch.device(map_location or "cpu"))
+        tensors = blocks
     return _rebuild(meta["tree"], tensors, target)
+
+
+def _read_blocks(spec: Dict, layout: Any, read, out: Dict[str, torch.Tensor],
+                 dev: torch.device, path: str = "") -> None:
+    """Walk the checkpoint's structure `spec` and the layouts `layout`
+    together: each tensor's block (whole where its layout is None) read
+    with `read` into a tensor of its own in `out`, on `dev` (numpy
+    leaves on the CPU)."""
+    from ray_tpu_torch.parallel.sharding import NamedSharding
+
+    def differ(key: Any = None) -> ValueError:
+        at = path if key is None else f"{path}/{key}" if path else str(key)
+        return ValueError(f"shardings differ from the checkpoint's "
+                          f"structure at {at or '<root>'!r}")
+
+    def walk(items, layouts):
+        for k, v in items:
+            _read_blocks(v, layouts[k], read, out, dev,
+                         f"{path}/{k}" if path else str(k))
+
+    if "tensor" in spec or "ndarray" in spec:
+        if layout is not None and not isinstance(layout, NamedSharding):
+            raise differ()
+        key = spec["tensor"] if "tensor" in spec else spec["ndarray"]
+        out[key] = read(key, layout, dev if "tensor" in spec else "cpu")
+    elif "value" in spec:
+        if layout is not None:
+            raise differ()
+    elif "dict" in spec:
+        items = spec["dict"]
+        if not isinstance(layout, dict):
+            raise differ()
+        for k in list(items) + list(layout):
+            if k not in items or k not in layout:
+                raise differ(k)
+        walk(items.items(), layout)
+    elif "namedtuple" in spec:
+        fields = spec["fields"]
+        if not hasattr(layout, "_fields") or \
+                type(layout).__name__ != spec["namedtuple"]:
+            raise differ()
+        for f, g in zip(list(fields) + [None], list(layout._fields) + [None]):
+            if f != g:
+                raise differ(f if f is not None else g)
+        walk(fields.items(), layout._asdict())
+    else:
+        items = spec["list" if "list" in spec else "tuple"]
+        if not isinstance(layout, (list, tuple)) or hasattr(layout,
+                                                             "_fields"):
+            raise differ()
+        if len(layout) != len(items):
+            raise differ(min(len(layout), len(items)))
+        walk(enumerate(items), layout)
+
+
+def _block_reader(f, tensors: Dict[str, torch.Tensor]):
+    """read(key, layout, dev): the block of tensors[key] (a tensor in
+    torch.load's mapping of the whole tensors.pt, whose bytes are never
+    touched there) read through a mapping of that leaf's own bytes of
+    the open file `f`, unmapped once the block is on `dev`.  Where a
+    kernel maps all the page cache holds of a file at a mapping's first
+    fault (an H100 host's sandboxed kernel, whose resident memory grew
+    by the whole 7.04 GB file when the blocks were read through
+    torch.load's mapping; PERF.md), a rank then holds one leaf of the
+    file at a time."""
+    with zipfile.ZipFile(f) as z:  # a zero-byte storage maps nothing
+        records = [i.header_offset for i in z.infolist()
+                   if re.search(r"/data/\d+$", i.filename) and i.file_size]
+    offsets = set()
+    for at in records:  # a local header: 30 bytes, the name, the extra
+        f.seek(at + 26)
+        name, extra = struct.unpack("<HH", f.read(4))
+        offsets.add(at + 30 + name + extra)
+    ptrs = [t.untyped_storage().data_ptr() for t in tensors.values()
+            if t.untyped_storage().nbytes()]
+    base = min(ptrs) - min(offsets) if ptrs else 0
+
+    def read(key: str, layout, dev) -> torch.Tensor:
+        like = tensors[key]
+        view = like if layout is None else layout.block(like)
+        nbytes = like.untyped_storage().nbytes()
+        if not nbytes:
+            return torch.empty(view.shape, dtype=view.dtype, device=dev)
+        at = like.untyped_storage().data_ptr() - base
+        if at not in offsets:
+            raise ValueError(f"{key}: no record of tensors.pt holds it")
+        lo = at - at % mmap.ALLOCATIONGRANULARITY
+        mm = mmap.mmap(f.fileno(), at - lo + nbytes, offset=lo,
+                       access=mmap.ACCESS_COPY)
+        try:
+            return torch.empty(view.shape, dtype=view.dtype,
+                               device=dev).copy_(torch.frombuffer(
+                mm, dtype=torch.uint8, count=nbytes, offset=at - lo).view(
+                like.dtype).as_strided(view.shape, view.stride(),
+                                       view.storage_offset()))
+        finally:
+            mm.close()
+
+    return read
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,9 @@ that ports them.
 `state_from_numpy` carries the reference's train state across (params,
 Adam count/mu/nu, schedule counts), so both sides can start from the same
 state; `shard_state` cuts a whole state to this rank's blocks and
-`gather_state` makes the whole state again, for a checkpoint.
+`gather_state` makes the whole state again, for a checkpoint;
+`state_shardings` is the state's layout tree, with which
+train/checkpoint.py load_pytree restores each rank's blocks alone.
 """
 
 from __future__ import annotations
@@ -47,8 +49,9 @@ from ray_tpu_torch.models import transformer as tfm
 from ray_tpu_torch.parallel import comm
 from ray_tpu_torch.parallel.mesh import (Mesh, canonical_axis, one_process_mesh,
                                          require_placeable)
-from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
-                                             data_sharding, tree_shardings)
+from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, NamedSharding,
+                                             Rules, data_sharding, replicated,
+                                             tree_shardings)
 from ray_tpu_torch.train import optim
 
 
@@ -221,6 +224,32 @@ class ShardedTrainStep:
         return {**state, "params": self.shard(state["params"]),
                 "opt_state": self._like_params(self.shard,
                                                state["opt_state"])}
+
+    def state_shardings(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The layout tree of a train state of this step (whole or in
+        blocks): `param_shardings` for the params and Adam's mu and nu,
+        a replicated layout for every other tensor, None for the leaves
+        that hold none.  What load_pytree(shardings=...) takes to restore
+        each rank's blocks; the port's counterpart of the reference's
+        `jax.tree.map(lambda a: a.sharding, state)`, since a block
+        carries no layout."""
+        rep = replicated(self.mesh)
+
+        def rec(x):
+            if isinstance(x, NamedSharding):
+                return x
+            if isinstance(x, dict):
+                return {k: rec(v) for k, v in x.items()}
+            if hasattr(x, "_fields"):
+                return type(x)(*(rec(v) for v in x))
+            if isinstance(x, (tuple, list)):
+                return type(x)(rec(v) for v in x)
+            return rep if isinstance(
+                x, (torch.Tensor, np.ndarray, np.generic)) else None
+
+        return rec({**state, "params": self.param_shardings,
+                    "opt_state": self._like_params(
+                        lambda _: self.param_shardings, state["opt_state"])})
 
     def gather_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The whole train state from this rank's blocks, the same on

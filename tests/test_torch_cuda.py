@@ -17,7 +17,9 @@ Training: a tiny train step (dense and MoE) on the card against the
 CPU, and each remat policy's gradients and flash launches.  Last, the
 port's runtime on the card: a num_gpus=1 task sees the card and a CPU
 task none, CUDA tensors come back from the object store bit for bit, and
-a fresh GPU actor's first torch_trace holds kernels; then the serve plane:
+a fresh GPU actor's first torch_trace holds kernels, and a plain
+one-thread GPU actor is traced between its calls within the bound (and
+refused in time during a long call); then the serve plane:
 a tiny bf16 LLMServer replica's handle and HTTP streams agree, and a bf16
 KV bundle crosses between two replicas that share the card; then the
 Train library: a num_gpus=1 TorchTrainer worker launches the Hopper flash
@@ -1223,6 +1225,119 @@ def test_first_torch_trace_of_a_busy_gpu_actor_holds_kernels(cuda_cluster):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert sum(e.get("cat") == "kernel" for e in events) > 0
+
+
+def test_plain_gpu_actor_traces_between_calls_within_the_bound(cuda_cluster):
+    """A plain num_gpus=1 actor that names no thread, whose method calls
+    each replay a captured graph: its worker names the actor loop's
+    thread as the profile runner, so two torch_traces taken through the
+    control plane while a driver thread keeps calling it each return a
+    trace that holds kernel events, within the window plus twice the
+    bound; a trace taken during one long call answers "profile failed:
+    ..." once the bound has passed, its start never runs, and the actor
+    answers its next call."""
+    import threading
+    import time
+
+    rt = cuda_cluster
+
+    class Replayer:
+        def __init__(self):
+            import torch
+
+            a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+            outs = [torch.empty_like(a) for _ in range(8)]
+
+            def body():
+                x = a
+                for o in outs:
+                    torch.matmul(x, a, out=o)
+                    x = o
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                body()
+            torch.cuda.synchronize()
+            self.keep = (a, outs)
+
+        def replay(self, n):
+            import torch
+
+            for _ in range(n):
+                self.graph.replay()
+            torch.cuda.synchronize()
+            return n
+
+        def hold(self, seconds):
+            import time
+
+            n, end = 0, time.perf_counter() + seconds
+            while time.perf_counter() < end:
+                n += self.replay(4)
+            return n
+
+        def set_bound(self, seconds):
+            importlib.import_module(
+                f"{PORT}.core.runtime").PROFILE_BOUND_S = seconds
+
+        def state(self):
+            import torch
+
+            runtime = importlib.import_module(f"{PORT}.core.runtime")
+            return (rt.get_runtime_context().worker_id,
+                    type(runtime._profile_runner).__name__,
+                    runtime.PROFILE_BOUND_S,
+                    torch.autograd._profiler_enabled())
+
+    actor = rt.remote(num_gpus=1)(Replayer).remote()
+    worker, runner, bound, profiling = rt.get(actor.state.remote(),
+                                              timeout=300)
+    assert runner == "ThreadRunner" and not profiling
+    drv = importlib.import_module(f"{PORT}.core.runtime").get_runtime()
+
+    def trace(timeout_s):
+        t0 = time.perf_counter()
+        out = drv.core.client.call(
+            {"op": "profile_worker", "worker_hex": worker,
+             "kind": "torch_trace", "duration_s": 0.5,
+             "timeout_s": timeout_s}, timeout=timeout_s + 30)
+        return out, time.perf_counter() - t0
+
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            rt.get(actor.replay.remote(4), timeout=300)
+
+    th = threading.Thread(target=load, daemon=True)
+    th.start()
+    try:
+        for _ in range(2):
+            path, took = trace(0.5 + 2 * bound + 15)
+            assert isinstance(path, str) and os.path.isfile(path), path
+            assert took < 0.5 + 2 * bound + 15
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            assert sum(e.get("cat") == "kernel" for e in events) > 0
+    finally:
+        stop.set()
+        th.join(300)
+    assert not th.is_alive()
+    rt.get(actor.set_bound.remote(3.0), timeout=60)
+    held = actor.hold.remote(8.0)
+    time.sleep(1.0)  # the long call has begun on the actor's thread
+    out, took = trace(20.0)
+    assert out == ("profile failed: the device thread did not come free "
+                   "within 3 s"), out
+    assert 3.0 <= took < 6.0, took
+    assert rt.get(held, timeout=300) > 0
+    assert rt.get(actor.state.remote(), timeout=60)[3] is False
+    assert rt.get(actor.replay.remote(1), timeout=60) == 1
 
 
 _SERVE_TINY = dict(num_layers=2, num_heads=4, num_kv_heads=2,

@@ -9,7 +9,12 @@ by side, each run their own tasks: a GPU request on the CPU-only port
 cluster pends as a TPU request does on the reference's, the port refuses
 to join the reference's head, a worker's metrics publish into the port's
 cluster view, and a torch_trace self-profile writes a Chrome trace (one that
-asked for CUDA activity and recorded none is flagged as failed).
+asked for CUDA activity and recorded none is flagged as failed).  Then the
+profiler session's bound, with a stand-in profiler whose start blocks: a
+busy device thread answers "profile failed: ..." in time and its start is
+withdrawn for good, a stuck start fails in time and refuses a second
+session until it returns, and a GPU-class worker's one task thread is the
+default profile runner.
 """
 
 import dataclasses
@@ -296,7 +301,8 @@ def test_torch_trace_starts_and_stops_on_the_named_thread(tmp_path,
                                                           monkeypatch):
     """With a profile runner named (LLMServer names its engine thread),
     torch_trace enters and leaves its session on that thread and waits
-    out the window on its own; without one it does all on its own."""
+    out the window on its own; without one the session starts and stops
+    on one thread of its own (bounded, like a runner's)."""
     import concurrent.futures
     import threading
 
@@ -324,11 +330,197 @@ def test_torch_trace_starts_and_stops_on_the_named_thread(tmp_path,
         seen.clear()
         out = runtime._torch_trace(str(tmp_path / "own"), 0.05)
         assert os.path.isfile(out)
-        me = threading.get_ident()
-        assert seen == [("start", me), ("stop", me)]
+        (start, ts), (stop, tp) = seen
+        assert (start, stop) == ("start", "stop") and ts == tp
+        assert ts not in (threading.get_ident(), owner)
     finally:
         runtime.set_profile_runner(None)
         ex.shutdown()
+
+
+class _StandInProfile:
+    """A stand-in torch.profiler.profile: `start` blocks until `gate` is
+    set (a start that hangs); every call is logged with its thread."""
+
+    gate = None
+    calls = None
+
+    def __init__(self, activities=None):
+        pass
+
+    def start(self):
+        import threading
+
+        self.calls.append(("start", threading.get_ident()))
+        self.gate.wait()
+
+    def stop(self):
+        import threading
+
+        self.calls.append(("stop", threading.get_ident()))
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            json.dump({"traceEvents": []}, f)
+
+
+@pytest.fixture
+def stand_in_profile(monkeypatch):
+    import threading
+
+    runtime = importlib.import_module(f"{PORT}.core.runtime")
+    monkeypatch.setattr(_StandInProfile, "gate", threading.Event())
+    monkeypatch.setattr(_StandInProfile, "calls", [])
+    monkeypatch.setattr(importlib.import_module("torch.profiler"),
+                        "profile", _StandInProfile)
+    monkeypatch.setattr(runtime, "_profile_runner", None)
+    yield runtime, _StandInProfile
+    _StandInProfile.gate.set()
+    deadline = time.monotonic() + T
+    while runtime._session_open and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not runtime._session_open
+
+
+def test_torch_trace_answers_within_its_bound_and_withdraws_a_start(
+        tmp_path, stand_in_profile, monkeypatch):
+    """The device thread is busy in a long task: torch_trace answers
+    "profile failed: ..." once its bound has passed, its start is
+    withdrawn and never runs when the thread comes free, and the next
+    session starts and stops there."""
+    import threading
+
+    runtime, prof = stand_in_profile
+    prof.gate.set()
+    runner, busy = runtime.ThreadRunner(), threading.Event()
+    stop = threading.Event()
+
+    def device_thread():  # one long task, then its work items
+        busy.wait()
+        while not stop.is_set():
+            runner.run_pending()
+            time.sleep(0.01)
+
+    th = threading.Thread(target=device_thread)
+    th.start()
+    runtime.set_profile_runner(runner)
+    try:
+        monkeypatch.setattr(runtime, "PROFILE_BOUND_S", 0.5)
+        t0 = time.monotonic()
+        out = runtime._torch_trace(str(tmp_path / "busy"), 0.05)
+        took = time.monotonic() - t0
+        assert out == ("profile failed: the device thread did not come free "
+                       "within 0.5 s"), out
+        assert 0.5 <= took < 5.0, took
+        busy.set()
+        time.sleep(0.3)  # the thread runs what was handed to it
+        assert prof.calls == []
+        monkeypatch.setattr(runtime, "PROFILE_BOUND_S", 5.0)
+        out = runtime._torch_trace(str(tmp_path / "free"), 0.05)
+        assert os.path.isfile(out), out
+        assert prof.calls == [("start", th.ident), ("stop", th.ident)]
+    finally:
+        stop.set()
+        th.join(T)
+
+
+def test_torch_trace_of_a_stuck_start_fails_and_blocks_a_second_session(
+        tmp_path, stand_in_profile, monkeypatch):
+    """A start that began and does not return: the request answers
+    "profile failed: ..." once the bound has passed, a second request
+    while the session is stuck answers at once, and when the start
+    returns at last its session stops on the same thread; then a new
+    session runs."""
+    runtime, prof = stand_in_profile
+    monkeypatch.setattr(runtime, "PROFILE_BOUND_S", 0.5)
+    t0 = time.monotonic()
+    out = runtime._torch_trace(str(tmp_path / "stuck"), 0.05)
+    took = time.monotonic() - t0
+    assert out.startswith("profile failed: the profiler's start did not "
+                          "return within 0.5 s"), out
+    assert 0.5 <= took < 5.0, took
+    t0 = time.monotonic()
+    monkeypatch.setattr(runtime, "PROFILE_BOUND_S", 30.0)
+    again = runtime._torch_trace(str(tmp_path / "again"), 0.05)
+    assert again.startswith("profile failed: a profiler session of this "
+                            "process is still open"), again
+    assert time.monotonic() - t0 < 1.0
+    assert len(prof.calls) == 1
+    prof.gate.set()
+    deadline = time.monotonic() + T
+    while runtime._session_open and time.monotonic() < deadline:
+        time.sleep(0.01)
+    (start, ts), (stop, tp) = prof.calls
+    assert (start, stop) == ("start", "stop") and ts == tp
+    monkeypatch.setattr(runtime, "PROFILE_BOUND_S", 5.0)
+    out = runtime._torch_trace(str(tmp_path / "next"), 0.05)
+    assert os.path.isfile(out), out
+
+
+def test_a_session_that_cannot_be_set_up_leaves_none_open(
+        tmp_path, stand_in_profile, monkeypatch):
+    """The profiler cannot be made (its constructor raises) or its
+    directory cannot be: the request fails with that error, no session
+    is left open, and the next trace runs."""
+    runtime, prof = stand_in_profile
+    prof.gate.set()
+    tprof = importlib.import_module("torch.profiler")
+
+    def broken(activities=None):
+        raise RuntimeError("no profiler here")
+
+    monkeypatch.setattr(tprof, "profile", broken)
+    with pytest.raises(RuntimeError, match="no profiler here"):
+        runtime._torch_trace(str(tmp_path / "broken"), 0.05)
+    assert not runtime._session_open
+    monkeypatch.setattr(tprof, "profile", prof)
+    (tmp_path / "a_file").write_text("")
+    with pytest.raises(OSError):
+        runtime._torch_trace(str(tmp_path / "a_file" / "trace"), 0.05)
+    assert not runtime._session_open and prof.calls == []
+    out = runtime._torch_trace(str(tmp_path / "next"), 0.05)
+    assert os.path.isfile(out), out
+    assert [c for c, _ in prof.calls] == ["start", "stop"]
+
+
+def test_a_one_thread_gpu_worker_names_its_task_thread(monkeypatch):
+    """A GPU-class worker whose tasks run on one thread (here its actor
+    loop) names that thread as the profile runner, and the thread runs
+    what is handed to it between two tasks; an actor that named a runner
+    of its own keeps it, and a CPU-class worker names none."""
+    import queue
+    import threading
+    import types
+
+    runtime = importlib.import_module(f"{PORT}.core.runtime")
+    worker = importlib.import_module(f"{PORT}.core.worker")
+    monkeypatch.setattr(runtime, "_profile_runner", None)
+
+    def stub(gpu):
+        return types.SimpleNamespace(
+            _gpu_class=gpu, _device_runner=None,
+            _exit_ev=threading.Event(), _task_queue=queue.Queue(),
+            _run_device_calls=lambda: None)
+
+    cpu = stub(False)
+    worker.WorkerRuntime._name_device_thread(cpu)
+    assert cpu._device_runner is None and runtime._profile_runner is None
+    w = stub(True)
+    w._run_device_calls = lambda: worker.WorkerRuntime._run_device_calls(w)
+    worker.WorkerRuntime._name_device_thread(w)
+    assert runtime._profile_runner is w._device_runner is not None
+    th = threading.Thread(target=worker.WorkerRuntime._actor_loop,
+                          args=(w,))
+    th.start()
+    try:
+        assert runtime._profile_runner(threading.get_ident) == th.ident
+    finally:
+        w._exit_ev.set()
+        th.join(T)
+    own = stub(True)
+    worker.WorkerRuntime._name_device_thread(own)
+    assert own._device_runner is None
+    assert runtime._profile_runner is w._device_runner
 
 
 # -- metrics publishing, function level (tests/test_observability.py) ---------

@@ -44,8 +44,10 @@ Also: `forward` under a seq mesh and under tensor meshes (whole logits
 from vocabulary blocks) equals the reference's dense forward
 (tests/test_ring_pipeline.py:120-147); `get_mesh`, `prepare_pytree` and
 `shard_batch` on a 2-rank data mesh; steps on {fsdp: 2} and
-{tensor: 2}; and NotImplementedError for expert and stage of more than
-one rank, tensor with seq, and MoE on a mesh.
+{tensor: 2}; a run on {fsdp: 2} that goes on bit for bit through a
+checkpoint saved whole and restored as each rank's blocks
+(`load_pytree(shardings=...)`); and NotImplementedError for expert and
+stage of more than one rank, tensor with seq, and MoE on a mesh.
 
 One cluster for the file (num_cpus=4, num_gpus=0) and one fit per mesh
 shape in a test run, behind module-scoped fixtures whose result the
@@ -302,6 +304,43 @@ def _run_mesh(tmp_path_factory, name):
             res["all_gather"] = comm.all_gather(
                 torch.full((1, 2), float(rank)), order, m.get_group("fsdp"),
                 0).tolist()
+            # A sharded restore mid-run: the state after one step, saved
+            # whole by rank 0 and restored as each rank's blocks into a
+            # fresh step; then the next step from each.
+            ckpt = importlib.import_module(f"{port}.train.checkpoint")
+            cfg = tfm.TransformerConfig(**dict(kw, remat=True))
+
+            def make():
+                return ts.ShardedTrainStep(
+                    cfg, mesh, device="cpu", optimizer=ts.default_optimizer(
+                        learning_rate=1e-2, warmup_steps=1))
+
+            live = make()
+            state = live.shard_state(ts.state_from_numpy(
+                config["starts"][False, False], cfg, device="cpu"))
+            batch = config["batches"][False]
+            state, _ = live.step(state, batch)
+            path = os.path.join(config["out"], "restore")
+            whole = live.gather_state(state)
+            if rank == 0:
+                ckpt.save_pytree(whole, path)
+            dist.barrier()
+            fresh = make()
+            back = ckpt.load_pytree(path,
+                                    shardings=fresh.state_shardings(whole))
+            (sa, ta), (sb, tb) = (ckpt.flatten_pytree(back),
+                                  ckpt.flatten_pytree(state))
+            same = sa == sb and ta.keys() == tb.keys() and all(
+                ta[k].dtype == tb[k].dtype and torch.equal(ta[k], tb[k])
+                for k in ta)
+            state, m_live = live.step(state, batch)
+            back, m_back = fresh.step(back, batch)
+            res["restore"] = {
+                "same": same, "loss": (m_live["loss"].item(),
+                                       m_back["loss"].item()),
+                "digest": (live.check_replicated(live.gather(state["params"])),
+                           fresh.check_replicated(
+                               fresh.gather(back["params"])))}
         with open(os.path.join(config["out"],
                                f"rank{dist.get_rank()}.pkl"), "wb") as f:
             pickle.dump(res, f)
@@ -626,6 +665,21 @@ def test_train_helpers_on_two_fsdp_ranks(fsdp2):
         np.testing.assert_array_equal(
             res["reduce_scatter"], total[:, 3 * (1 - r):3 * (2 - r)])
         assert res["all_gather"] == [[1.0, 1.0], [0.0, 0.0]]
+
+
+def test_fsdp2_run_continues_bit_for_bit_through_a_sharded_restore(fsdp2):
+    """A state saved whole (gather_state, rank 0) and restored by
+    load_pytree(shardings=state_shardings) on each of two fsdp ranks
+    equals the rank's live blocks, NamedTuple for NamedTuple, and the
+    next step from it equals the next step from the live state, bit for
+    bit: the loss, and the gathered params by digest."""
+    _, ranks, _ = fsdp2
+    for res in ranks:
+        r = res["restore"]
+        assert r["same"], res["rank"]
+        assert r["loss"][0] == r["loss"][1], r
+        assert r["digest"][0] == r["digest"][1], r
+    assert ranks[0]["restore"] == ranks[1]["restore"]
 
 
 @pytest.mark.parametrize("name", ["seq2", "data2_seq2"] + TENSOR_MESHES)

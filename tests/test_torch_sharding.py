@@ -17,7 +17,8 @@ the reference's shard; nothing is allocated); the step's layouts on
 tensor meshes (the compute layout without fsdp, gathers over chosen
 axes) and `Mesh.get_group` over several axes; and the raises of what
 the port does not place: expert and stage of more than one rank,
-tensor with seq, fsdp with seq, and `load_pytree(shardings=...)`.
+tensor with seq and fsdp with seq.  (`load_pytree(shardings=...)` is
+held in tests/test_torch_sharded_restore.py.)
 """
 
 import importlib
@@ -40,7 +41,6 @@ pmesh = importlib.import_module(f"{PORT}.parallel.mesh")
 psh = importlib.import_module(f"{PORT}.parallel.sharding")
 ttf = importlib.import_module(f"{PORT}.models.transformer")
 tts = importlib.import_module(f"{PORT}.train.train_state")
-tck = importlib.import_module(f"{PORT}.train.checkpoint")
 
 
 def _meshes(axes, n):
@@ -313,12 +313,6 @@ def test_uneven_dim_raises():
     mesh = pmesh.build_mesh(axes={"fsdp": 4}, devices=list(range(4)))
     with pytest.raises(ValueError, match="does not split"):
         psh.NamedSharding(mesh, ("fsdp",)).shard(torch.zeros(6))
-
-
-def test_sharded_restore_raises(tmp_path):
-    path = tck.save_pytree({"w": torch.ones(4)}, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="6b, sharded restore"):
-        tck.load_pytree(path, shardings={"w": None})
 
 
 # -- the step's layouts on a tensor mesh --------------------------------------

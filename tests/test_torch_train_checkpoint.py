@@ -265,8 +265,8 @@ def test_load_pytree_structure_and_shardings(tmp_path):
     assert back["f"] == np.float32(1.5) and back["f"].dtype == np.float32
     with pytest.raises(ValueError, match="structure"):
         tck.load_pytree(path, target={"c": Custom(torch.zeros(1))})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tck.load_pytree(path, shardings={"c": None})
+    with pytest.raises(ValueError, match="structure at 'n'"):
+        tck.load_pytree(path, shardings={"c": Custom(None)})
     with pytest.raises(TypeError, match="keys"):
         tck.save_pytree({"a/b": torch.zeros(1)}, str(tmp_path / "bad"))
 
